@@ -9,7 +9,7 @@ confound the way BASELINE's "N>=2 hosts" axis demands:
 
 * N separate JAX processes (``jax.distributed.initialize`` + Gloo CPU
   collectives — REAL cross-process traffic, the same code path as
-  cross-host DCN), each owning exactly ONE XLA CPU device;
+  cross-host collectives), each owning exactly ONE XLA CPU device;
 * each process pinned to a DISJOINT core (``sched_setaffinity``), so
   per-device compute resources are constant across N — any efficiency
   loss is sharding overhead + collective time, not timesharing;
@@ -17,8 +17,8 @@ confound the way BASELINE's "N>=2 hosts" axis demands:
   ``full_ms`` (the production sharded program, collectives included)
   and ``compute_ms`` (identical local math, collectives elided), so
   ``collective_ms = full - compute`` is measured, not asserted, and is
-  reported next to the analytic bytes-on-the-wire model that predicts
-  real-chip (ICI) efficiency — see ARCHITECTURE.md "Scaling evidence".
+  reported next to the analytic bytes-on-the-wire model.  These are CPU
+  processes: no device metric comes from this harness.
 
 Engines (strong scaling, fixed total problem):
 
@@ -31,7 +31,7 @@ Engines (strong scaling, fixed total problem):
 
 Every mesh point is correctness-gated (golden / injected truth) before
 it is timed.  One JSON line per (engine, N); ``--out`` writes the full
-document (docs/scaling_pinned.json is the committed artifact).
+document.
 """
 
 import argparse

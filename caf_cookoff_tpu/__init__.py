@@ -1,16 +1,17 @@
-"""caf_cookoff_tpu — a TPU-native cross-ambiguity-function (CAF) engine.
+"""caf_cookoff_tpu — a cross-ambiguity-function (CAF) engine in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 Teque5/caf_cookoff reference (Rust/Go/Python CPU cook-off), redesigned for
-TPU hardware:
+an accelerator:
 
 * the doppler-bin fan-out (reference: rayon / goroutines / multiprocessing,
   ``caf_rust/src/caf/mod.rs``, ``caf_go/caf.go:143-173``,
   ``caf_python/caf.py:36-117``) becomes a single batched XLA program
   (``vmap`` over the doppler axis) and, across chips, ``shard_map`` over a
   device mesh;
-* the FFT backends (FFTW / RustFFT / go-dsp / pocketfft) become XLA:TPU FFT
-  HLO plus an MXU-friendly matmul-FFT and fused Pallas kernels;
+* the FFT backends (FFTW / RustFFT / go-dsp / pocketfft) become XLA FFT
+  HLO (cuFFT on the GPU) plus a matmul-DFT tier and the segmented
+  (Stein) engines;
 * peak extraction is a fused reduction carrying (value, freq-idx, lag-idx)
   triples through collectives instead of materializing rows on one host.
 
@@ -24,7 +25,6 @@ from caf_cookoff_tpu.errors import (
     EligibilityError,
     EngineError,
     SpanError,
-    VmemBudgetError,
 )
 from caf_cookoff_tpu.models.batched_stein import (
     batched_stein_os_peak,
@@ -78,7 +78,6 @@ __all__ = [
     "FilterbankCAF",
     "SpanError",
     "StreamingCAF",
-    "VmemBudgetError",
     "amb_surf",
     "apply_detection_threshold",
     "apply_fdoa",

@@ -11,11 +11,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import pathlib
 from typing import Tuple
 
 import numpy as np
 
 DEFAULT_SAMPLE_RATE = 48_000.0  # Hz, the reference's fixture rate
+
+# Every backend name an engine accepts ('auto' resolves to one of them).
+BACKENDS = ("xla", "matmul", "matmul-highest", "matmul-high",
+            "matmul-bf16", "stein", "stein-raw")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,24 +85,21 @@ class CafConfig:
 
     sample_rate: float = DEFAULT_SAMPLE_RATE
     grid: FreqGrid = BENCH_GRID
-    # 'c64' — complex64 compute (TPU-native);
+    # 'c64' — complex64 compute;
     # 'c128' — complex128 parity mode (CPU / x64, matches reference exactly).
     precision: str = "c64"
-    # Engine/FFT backend: 'auto' (xla on CPU, matmul on TPU);
-    # 'xla' (complex FFT HLO behind the split facade — CPU/parity);
-    # 'matmul[-highest|-high|-bf16]' (split-complex MXU four-step DFT
-    # at the given precision tier — the general TPU path);
-    # 'pallas[-refine|-bf16]' (fully fused VMEM kernel, peak-path);
+    # Engine/FFT backend: 'auto' (:func:`backend_for_platform`);
+    # 'xla' (complex FFT HLO behind the split facade — cuFFT on GPU);
+    # 'matmul[-highest|-high|-bf16]' (split-complex four-step DFT as
+    # dense matmuls at the given precision tier);
     # 'stein[-raw]' (time-segmented fast path + exact refinement —
-    # fastest golden-exact; doppler span must satisfy D<=fs/(4*f_max)).
+    # doppler span must satisfy D<=fs/(4*f_max), or band cleanly).
     backend: str = "auto"
 
     def __post_init__(self) -> None:
         if self.precision not in ("c64", "c128"):
             raise ValueError(f"unknown precision {self.precision!r}")
-        valid = ("auto", "xla", "matmul", "matmul-highest", "matmul-high",
-                 "matmul-bf16", "pallas", "pallas-refine", "pallas-bf16",
-                 "stein", "stein-raw")
+        valid = ("auto",) + BACKENDS
         if self.backend not in valid:
             raise ValueError(f"unknown backend {self.backend!r}")
 
@@ -109,20 +112,48 @@ class CafConfig:
         return np.float32 if self.precision == "c64" else np.float64
 
 
+# Default FFT backend per JAX platform.  On the GPU 'xla' (cuFFT on
+# complex64) is golden-exact on all ten fixtures and faster than the
+# 'matmul' four-step DFT at the 400x8192 headline shape (chip_smoke.py
+# prints both host times).
+_PLATFORM_BACKENDS = {"cpu": "xla", "gpu": "xla"}
+
+
 def backend_for_platform(platform: str) -> str:
     """Backend-resolution rule as a pure function of the jax platform
-    name — usable without initializing any backend (e.g. for `info`'s
-    sandboxed device probe)."""
-    return "xla" if platform == "cpu" else "matmul"
+    name; a platform with no entry is an error, not a default."""
+    try:
+        return _PLATFORM_BACKENDS[platform]
+    except KeyError:
+        raise ValueError(
+            f"no default FFT backend for JAX platform {platform!r} "
+            f"(known: {', '.join(sorted(_PLATFORM_BACKENDS))}); pass "
+            "backend= explicitly") from None
 
 
 def default_backend() -> str:
-    """'xla' (complex XLA FFT HLO behind the split facade) on CPU;
-    'matmul' (stacked-real-matmul MXU DFT) on TPU, where complex
-    buffers are unsupported."""
+    """The FFT backend for the active JAX platform."""
     import jax
 
     return backend_for_platform(jax.default_backend())
+
+
+_CHECKOUT_CACHE = pathlib.Path(__file__).resolve().parents[1] / ".jax_cache"
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its path.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is used as it is (JAX reads
+    it itself); otherwise the cache lives at a fixed directory of the
+    checkout (``.jax_cache/``, git-ignored), so later runs hit it."""
+    import jax
+
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", str(_CHECKOUT_CACHE))
+    return str(_CHECKOUT_CACHE)
 
 
 def as_grid(freqs_hz, dtype=np.float32) -> np.ndarray:
@@ -155,7 +186,7 @@ def xcor_length(needle_len: int) -> int:
     The reference pads both operands to 2N (``caf_rust/src/caf/mod.rs:79-80``,
     ``caf_go/caf.go:102-103``) and its fixtures are power-of-two sized; for
     arbitrary N we round 2N up to a power of two so every backend (XLA FFT,
-    matmul-FFT, Pallas) sees a friendly size.
+    matmul-FFT, segmented) sees a friendly size.
     """
     return next_pow2(2 * needle_len)
 

@@ -3,7 +3,7 @@
 The reference fails loud (``unwrap()``, ``caf_rust/src/main.rs:13``;
 ``log.Fatal``, ``caf_go/caf.go:47``).  The engines here have *legitimate*
 reroutes — a doppler span outside the segmented engine's envelope, a
-fused-kernel shape the chip's VMEM cannot take — and those used to be
+shape outside an engine's layout contract — and those used to be
 signalled with bare ``ValueError``, which meant a blanket ``except
 ValueError`` at the fallback sites could silently swallow a *real* bug
 (a shape error, a broken invariant) and downgrade the engine instead of
@@ -35,12 +35,6 @@ class SpanError(EngineError):
 
 
 class EligibilityError(EngineError):
-    """The shapes violate a fused/Pallas kernel's layout contract
+    """The shapes violate a segmented engine's layout contract
     (non-pow2 transform length, tile-misaligned bin count, ...).  The
     same math is always available on an XLA tier — reroute there."""
-
-
-class VmemBudgetError(EngineError):
-    """The fused kernel's working set exceeds the chip's VMEM budget
-    for this shape.  Reroute to the scan/matmul path or use a larger
-    block length (fewer, wider blocks)."""

@@ -1,39 +1,29 @@
-"""Batched Stein engine — one fused program for a (B, N) batch of pairs.
+"""Batched Stein engine — one program for a (P, N) batch of pairs.
 
-BASELINE config 2's workload (64 pairs x 400x8192 on one chip).  The
-round-1 path walked ``lax.map`` over per-pair Stein programs — zero
-batch amortization (0.060 ms/surface vs 0.054 single-surface).  This
-engine restructures the whole batch around two MXU-shaped stages:
+BASELINE config 2's workload (64 pairs x 400x8192).  The whole batch
+runs through two matmul-shaped stages:
 
-* **Stage A — segment correlations as a direct MXU dot.**  For needle
+* **Stage A — segment correlations as a direct dot.**  For needle
   blocks of length D, ``G[b, tau] = sum_d conj(n[bD+d]) * h[bD+d+tau]``
-  is a D-tap cross-correlation — and at D = 64 direct evaluation
-  (D MACs/lag) beats any FFT factorization (~(n1+n2) MACs/lag at
-  M = 8192), so the FFTs of the single-pair engine (``models/stein.py``)
-  disappear entirely.  Block ``b``'s correlations land at staircase
+  is a D-tap cross-correlation, evaluated directly (D MACs per lag)
+  instead of through the single-pair engine's FFTs
+  (``models/stein.py``).  Block ``b``'s correlations land at staircase
   column ``b*D + tau`` and the whole stage is one stacked dense
   (2B, 2*D) x (2*D, span) matmul against shifted-haystack Hankel rows.
-  (An ``lax.conv`` formulation of the same math lowered pathologically
-  on TPU — 53.6 ms for the 64-pair batch — hence the explicit
-  operator.)
 
-* **Stage B — fused kernel** (``ops/pallas_stein.fused_stein_rank``):
-  one program per pair runs BOTH stages in VMEM — Hankel rows built
-  from the ~100 KB haystack extension, the stage-A dot, staircase
-  extraction, the two stacked synthesis matmuls, and the
-  |.|^2 / per-bin-max epilogue.  Nothing pair-sized touches HBM; the
-  (K, P*M) synthesized surface (~1.7 GB at config-2 shape) never
-  exists.  On CPU the pure-XLA twin :func:`_coarse_rank_xla` runs the
-  identical math (HBM-materialized) for tests.
+* **Stage B — synthesis and rank** (:func:`coarse_rank`): the per-block
+  staircase is un-sheared into G, the two stacked synthesis matmuls
+  give every doppler row, and a |.|^2 / per-bin-max epilogue reduces
+  each (pair, bin) to its best lag.
 
-* **Exactness — batched top-k re-score.**  The coarse pass (bf16 conv +
-  bf16 synthesis + block-phase approximation) only RANKS bins; the top
-  ``_REFINE_BINS`` per pair are re-scored with exact filterbank rows
+* **Exactness — batched top-k re-score.**  The coarse pass (default
+  matmul precision + block-phase approximation) only RANKS bins; the
+  top candidates per pair are re-scored with exact filterbank rows
   (vmapped), the same rank-then-score contract as every other engine.
 
 Reference analog: the threadpool strategy saturating all cores on one
 surface (``caf_rust/src/caf/mod.rs:388-462``) — here the batch axis is
-what saturates the chip.
+what fills the device.
 """
 
 from __future__ import annotations
@@ -56,8 +46,8 @@ from caf_cookoff_tpu.ops.peak import (
     find_peak_2d,
     merge_peaks,
 )
-# The super-block width is the kernel's layout contract — one source.
-from caf_cookoff_tpu.ops.pallas_stein import SUPER
+SUPER = 128       # needle padding / haystack-extension quantum
+FUSED_TILE = 512  # lag-axis quantum: coarse lag ranges pad to a multiple
 
 
 def _pow2_block_len(sample_rate: float, freqs_hz: np.ndarray,
@@ -78,12 +68,9 @@ def _needle_operator(ns_re, ns_im, d: int):
     Row layout: rows [0, B) produce Re(G), rows [B, 2B) Im(G); columns
     [0, D) act on shifted-haystack real rows, [D, 2*D) on imaginary
     rows.  Block ``b``'s correlations land at staircase column
-    ``b*D + tau`` (the per-block staircase — the kernel's un-shear
-    handles the 64-aligned offsets; an earlier super-block layout
-    zero-padded each row to 128 taps and paid 2x the stage-A MACs at
-    D = 64).  Needles must already be padded to whole blocks.
-    Returns ``(lmat, D)`` — the second element rides to the kernel's
-    ``sup`` argument.
+    ``b*D + tau`` (the per-block staircase).  Needles must already be
+    padded to whole blocks.  Returns ``(lmat, D)`` — the second element
+    rides to :func:`coarse_rank`'s ``sup`` argument.
     """
     p, n_pad = ns_re.shape
     b = n_pad // d
@@ -103,7 +90,7 @@ def _haystack_extension(hs_re, hs_im, m: int, span: int):
     mod M (zeros in [N, M)); staircase column c reads samples
     [c, c+block_len), so the extension tiles the zero-padded period.
     Columns past the masked lag range are never consumed.  (The buffer
-    keeps the kernel's span+SUPER-1 sizing contract even when
+    keeps :func:`coarse_rank`'s span+SUPER-1 sizing contract even when
     block_len < SUPER.)
     """
     p, n_h = hs_re.shape
@@ -121,26 +108,117 @@ def _haystack_extension(hs_re, hs_im, m: int, span: int):
 _BIG_IDX = np.int32(2 ** 30)
 
 
-def _coarse_rank_xla(ws1, ws2, lmat, h_ext, b: int, sup: int,
-                     num_lags: int, num_valid=None, want_top2: bool = False,
-                     sep: int = 0):
-    """Pure-XLA twin of ops/pallas_stein.fused_stein_rank — the CPU
-    (and numerical-reference) path: same math, same per-block staircase
-    layout, materialized in HBM instead of VMEM.  ``num_valid`` is the
-    kernel's per-program lag bound ((P,) int32 — see the shadowing
-    note there).  ``want_top2`` mirrors the kernel's top-2-separated
-    epilogue ((vals, idxs, vals2, idxs2), slot-2 sentinel ``-1.0``);
-    computed globally here (no tile merge), so this twin is exact for
-    same-bin pairs ``> sep`` apart where the kernel guarantees
-    ``> 2*sep`` — a strict superset of the kernel's contract."""
-    from caf_cookoff_tpu.ops.pallas_stein import FUSED_TILE
+def fused_span(num_blocks: int, sup: int, num_lags: int,
+               a_chunks: int = 4) -> int:
+    """Column span of the per-block staircase layout (block ``b`` at
+    column ``b*sup``), padded to whole ``a_chunks * SUPER`` quanta:
+    callers size the haystack extension to ``span + SUPER - 1``
+    samples."""
+    m_pad = -(-num_lags // FUSED_TILE) * FUSED_TILE
+    span = (num_blocks - 1) * sup + m_pad
+    quantum = a_chunks * SUPER
+    return -(-span // quantum) * quantum
 
-    span = h_ext.shape[-1] - (SUPER - 1)
+
+def stein_synthesis_weights(freqs_hz, sample_rate, num_blocks: int,
+                            block_len: int):
+    """(ws1, ws2) = ([Wr | -Wi], [Wi | Wr]) for :func:`coarse_rank`."""
+    centers = jnp.asarray(
+        np.arange(num_blocks) * block_len + (block_len - 1) / 2.0,
+        jnp.float32)
+    w = ((-2.0 * jnp.pi) / jnp.float32(sample_rate)) * jnp.outer(
+        jnp.asarray(freqs_hz, jnp.float32), centers)
+    wr, wi = jnp.cos(w), jnp.sin(w)
+    return (jnp.concatenate([wr, -wi], axis=1),
+            jnp.concatenate([wi, wr], axis=1))
+
+
+def stein_rate_synthesis_weights(freqs_hz, rates_hz_per_s, sample_rate,
+                                 num_blocks: int, block_len: int):
+    """(ws1, ws2) with the RATE axis folded into synthesis rows.
+
+    The dechirp quadratic phase ``pi*r*(t/fs)^2`` is block-center
+    constant to the same tolerance as the doppler phase (its
+    within-block drift is a frequency of ``r * t_b / fs`` Hz — callers
+    must fold ``|r|_max * T`` into the block-length envelope), so a
+    trial rate is just a different phase at each block center:
+
+        w[i*K + k, b] = -(2*pi*f_k*t_b + pi*r_i*t_b^2),  t_b in seconds
+
+    (rate-major rows).  Stage A (the segment correlations) is shared by
+    EVERY (rate, doppler) pair — the rate axis costs synthesis rows,
+    not transforms.
+    """
+    tb = jnp.asarray(
+        np.arange(num_blocks) * block_len + (block_len - 1) / 2.0,
+        jnp.float32) / jnp.asarray(sample_rate, jnp.float32)
+    f = jnp.asarray(freqs_hz, jnp.float32)
+    r = jnp.asarray(rates_hz_per_s, jnp.float32)
+    w = -(2.0 * jnp.pi) * (f[None, :, None] * tb[None, None, :]) \
+        - jnp.pi * (r[:, None, None] * (tb * tb)[None, None, :])
+    w = w.reshape(-1, tb.shape[0])              # (R*K, B) rate-major
+    wr, wi = jnp.cos(w), jnp.sin(w)
+    return (jnp.concatenate([wr, -wi], axis=1),
+            jnp.concatenate([wi, wr], axis=1))
+
+
+def coarse_rank(ws1, ws2, lmat, h_ext, num_blocks: int, sup: int,
+                num_lags: int, *, windows: int = 1, share_h: int = 1,
+                num_valid=None, want_top2: bool = False, sep: int = 0):
+    """Per-(bin, program) coarse (max |R|^2, arg lag) of the Stein
+    coarse stage: stage A as a direct dot against shifted-haystack
+    Hankel rows, per-block staircase extraction, the two stacked
+    synthesis matmuls, and the |.|^2 / per-bin max epilogue.
+
+    ``lmat``: (P*S, 2B, 2*sup) needle-tap operators (see
+    :func:`_needle_operator`); ``h_ext``: (P*W, 2, span+SUPER-1)
+    haystack extensions; ``ws1``/``ws2``: (K, 2B) synthesis weights.
+    Returns ``(vals, idxs)``, each (K, P_eff) with ``P_eff = P*S*W``.
+
+    Programs run band-major, ``i = ((pair*S + band)*W + w)`` with
+    ``S = share_h`` and ``W = windows``: program ``i`` pairs operator
+    ``lmat[i // W]`` with haystack slice ``h_ext[(i // (S*W))*W + i %
+    W]``.  ``windows > 1`` is the long-capture mode (each pair's
+    overlap-save lag windows share its operator; lag indices are
+    window-local); ``share_h > 1`` the banded mode (each pair's bands
+    share its haystack slices).  The Hankel rows are built once per
+    haystack slice and contracted against every band's operator.
+
+    ``num_valid`` (optional (P_eff,) int32) bounds the scanned lag
+    range per program: the per-bin (max, argmax) cannot be masked
+    afterwards without dropping a bin's in-range peak along with an
+    out-of-range shadow.
+
+    ``want_top2=True`` returns ``(vals, idxs, vals2, idxs2)``: slot 2
+    is the bin's strongest lag more than ``sep`` samples from slot 1's
+    (value ``-1.0`` when none exists), taken over the whole lag range —
+    so two same-bin emitters more than ``sep`` apart both survive.
+
+    Operands are float32 at the default matmul precision: this stage
+    only RANKS bins, and every engine re-scores its top candidates
+    exactly (rank-then-score).
+    """
+    p_eff = lmat.shape[0] * windows
+    if p_eff != h_ext.shape[0] * share_h:
+        raise ValueError(
+            f"{lmat.shape[0]} operators x {windows} windows != "
+            f"{h_ext.shape[0]} h_ext slices x {share_h} bands")
+    if lmat.shape[2] != 2 * sup:
+        raise ValueError(
+            f"operator width {lmat.shape[2]} != 2*block_len {2 * sup}")
+    span = fused_span(num_blocks, sup, num_lags)
+    if h_ext.shape[1:] != (2, span + SUPER - 1):
+        raise ValueError(f"h_ext shape {h_ext.shape} != "
+                         f"(*, 2, {span + SUPER - 1})")
+    pairs = h_ext.shape[0] // windows
+    b = num_blocks
     hank = jnp.concatenate([
-        jnp.stack([h_ext[:, 0, e:e + span] for e in range(sup)], axis=1),
-        jnp.stack([h_ext[:, 1, e:e + span] for e in range(sup)], axis=1),
-    ], axis=1)                                        # (P, 2*sup, span)
-    co = jnp.einsum("pbe,pes->pbs", lmat, hank)       # (P, 2B, span)
+        jnp.stack([h_ext[:, c, e:e + span] for e in range(sup)], axis=1)
+        for c in range(2)], axis=1)                   # (P*W, 2*sup, span)
+    hank = hank.reshape(pairs, windows, 2 * sup, span)
+    lm = lmat.reshape(pairs, share_h, 2 * b, 2 * sup)
+    co = jnp.einsum("pjbe,pwec->pjwbc", lm, hank).reshape(
+        p_eff, 2 * b, span)                           # (P_eff, 2B, span)
     m_pad = -(-num_lags // FUSED_TILE) * FUSED_TILE
     g_top = jnp.stack(
         [co[:, blk, blk * sup:blk * sup + m_pad] for blk in range(b)],
@@ -148,12 +226,18 @@ def _coarse_rank_xla(ws1, ws2, lmat, h_ext, b: int, sup: int,
     g_bot = jnp.stack(
         [co[:, b + blk, blk * sup:blk * sup + m_pad] for blk in range(b)],
         axis=1)
-    g = jnp.concatenate([g_top, g_bot], axis=1)       # (P, 2B, m_pad)
+    g = jnp.concatenate([g_top, g_bot], axis=1)       # (P_eff, 2B, m_pad)
     rr = jnp.einsum("kb,pbm->pkm", ws1, g)
     ri = jnp.einsum("kb,pbm->pkm", ws2, g)
     mag2 = rr * rr + ri * ri
-    bound = (num_lags if num_valid is None
-             else jnp.asarray(num_valid, jnp.int32)[:, None, None])
+    if num_valid is None:
+        bound = num_lags
+    else:
+        num_valid = jnp.asarray(num_valid, jnp.int32)
+        if num_valid.shape != (p_eff,):
+            raise ValueError(
+                f"num_valid shape {num_valid.shape} != ({p_eff},)")
+        bound = num_valid[:, None, None]
     mag2 = jnp.where(jnp.arange(m_pad)[None, None, :] < bound,
                      mag2, -1.0)
     if want_top2:
@@ -169,35 +253,24 @@ def _coarse_rank_xla(ws1, ws2, lmat, h_ext, b: int, sup: int,
         a2 = jnp.where(a2 == _BIG_IDX, 0, a2)
         return (m1[..., 0].T, a1[..., 0].T.astype(jnp.int32),
                 m2[..., 0].T, a2[..., 0].T.astype(jnp.int32))
-    vals = jnp.max(mag2, axis=-1)                     # (P, K)
+    vals = jnp.max(mag2, axis=-1)                     # (P_eff, K)
     idxs = jnp.argmax(mag2, axis=-1).astype(jnp.int32)
     return vals.T, idxs.T
 
 
 def _batched_stein_core(ns_re, ns_im, hs_re, hs_im, freqs_hz,
                         sample_rate, xcor_len, block_len, backend,
-                        refine: bool, interpret: bool):
+                        refine: bool):
     """Traceable batch pipeline (also the ``shard_map`` body of
     :func:`caf_cookoff_tpu.parallel.sharded_batched_stein_peak`)."""
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_synthesis_weights,
-    )
 
     b = ns_re.shape[-1] // block_len
     lmat, group = _needle_operator(ns_re, ns_im, block_len)
     span = fused_span(b, group, xcor_len)
     h_ext = _haystack_extension(hs_re, hs_im, xcor_len, span)
     ws1, ws2 = stein_synthesis_weights(freqs_hz, sample_rate, b, block_len)
-    if interpret:
-        # CPU path: the kernel's pure-XLA twin (HBM-materialized).
-        vals, idxs = _coarse_rank_xla(ws1, ws2, lmat, h_ext, b, group,
-                                      xcor_len)               # (K, P)
-    else:
-        vals, idxs = fused_stein_rank(ws1, ws2, lmat, h_ext, b, group,
-                                      xcor_len,
-                                      want_idxs=not refine)   # (K, P)
+    vals, idxs = coarse_rank(ws1, ws2, lmat, h_ext, b, group,
+                             xcor_len)                        # (K, P)
     vals_t = vals.T                                          # (P, K)
     if not refine:
         best = jnp.argmax(vals_t, axis=1)                    # (P,)
@@ -244,29 +317,23 @@ def _batched_refine(ns_re, ns_im, hs_re, hs_im, freqs_all, vals_t,
 
 _batched_stein_peak_jit = functools.partial(
     jax.jit,
-    static_argnames=("xcor_len", "block_len", "backend", "refine",
-                     "interpret"))(_batched_stein_core)
+    static_argnames=("xcor_len", "block_len", "backend", "refine")
+)(_batched_stein_core)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("xcor_len", "block_len", "backend", "num_bins",
-                     "interpret"))
+    static_argnames=("xcor_len", "block_len", "backend", "num_bins"))
 def _banded_batched_jit(ns_re, ns_im, hs_re, hs_im, freqs_pad, centers,
                         rel, sample_rate, xcor_len, block_len, backend,
-                        num_bins, interpret):
-    """Wide-span batch: (pair, band) as the kernel's batch axis.
+                        num_bins):
+    """Wide-span batch: (pair, band) as the coarse stage's batch axis.
 
     Same construction as the single-pair banded path
     (models/stein.py:_banded_stein_peak_jit) with every pair's needle
     shifted to every band center; the exact per-pair re-score runs on
     absolute frequencies with the unshifted needles.
     """
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_synthesis_weights,
-    )
 
     p = ns_re.shape[0]
     s = centers.shape[0]
@@ -274,18 +341,12 @@ def _banded_batched_jit(ns_re, ns_im, hs_re, hs_im, freqs_pad, centers,
     b = sr.shape[-1] // block_len
     lmat, group = _needle_operator(sr, si, block_len)
     span = fused_span(b, group, xcor_len)
-    # ONE extension per pair: the kernel's share_h index map hands the
-    # same slice to all of a pair's band programs (no x S HBM copies).
+    # ONE extension per pair: coarse_rank's share_h mode hands the
+    # same slice to all of a pair's band programs (no x S copies).
     h_ext = _haystack_extension(hs_re, hs_im, xcor_len, span)
     ws1, ws2 = stein_synthesis_weights(rel, sample_rate, b, block_len)
-    if interpret:
-        vals, _ = _coarse_rank_xla(ws1, ws2, lmat,
-                                   jnp.repeat(h_ext, s, axis=0), b,
-                                   group, xcor_len)          # (Kb, P*S)
-    else:
-        vals, _ = fused_stein_rank(ws1, ws2, lmat, h_ext, b, group,
-                                   xcor_len, want_idxs=False,
-                                   share_h=s)
+    vals, _ = coarse_rank(ws1, ws2, lmat, h_ext, b, group, xcor_len,
+                          share_h=s)                        # (Kb, P*S)
     kb = rel.shape[0]
     flat = vals.T.reshape(p, s * kb)                # bin = s_idx*Kb + j
     flat = jnp.where(jnp.arange(s * kb)[None, :] < num_bins, flat,
@@ -315,64 +376,106 @@ def _shift_to_centers(ns_re, ns_im, centers, sample_rate):
     return sr, si
 
 
-def _os_window_extensions(hs_re, hs_im, v: int, windows: int, span: int):
-    """(P*W, 2, span+SUPER-1) linear (non-circular) per-window slices.
+# Device bytes one step of the windowed coarse stage may hold (the
+# Hankel rows, segment correlations and synthesis rows of a group of
+# lag windows).  Groups run one after another, so an engine's memory is
+# bounded whatever the capture length.
+WINDOW_GROUP_BYTES = 1 << 30
 
-    Window ``w`` of a pair covers lags [w*V, w*V + V); its extension is
-    the raw capture from sample ``w*V`` (correlations read real
-    neighboring samples — overlap-save's implicit halo), zero-padded at
-    the capture tail so trailing lags score 0 and never win.
+
+def window_group(pairs: int, share_h: int, rows: int, num_blocks: int,
+                 sup: int, v: int, windows: int) -> int:
+    """Lag windows per step of :func:`windowed_coarse_rank`: at most as
+    many as fit :data:`WINDOW_GROUP_BYTES` (at least one), spread evenly
+    over the fewest steps so the last step pads as few windows as
+    possible.
+
+    Per window and pair: the Hankel rows (2*sup, span), and per band
+    the segment correlations (2B rows, twice) and the two synthesis row
+    blocks (``rows`` each) over the padded lag tile, in float32."""
+    span = fused_span(num_blocks, sup, v)
+    m_pad = -(-v // FUSED_TILE) * FUSED_TILE
+    per_window = 4 * pairs * (
+        share_h * (2 * rows + 4 * num_blocks) * m_pad + 2 * sup * span)
+    most = max(1, min(windows, WINDOW_GROUP_BYTES // per_window))
+    steps = -(-windows // most)
+    return -(-windows // steps)
+
+
+def windowed_coarse_rank(ws1, ws2, lmat, hs_re, hs_im, num_blocks: int,
+                         sup: int, v: int, windows: int, total_lags: int,
+                         *, first_window=0, global_windows=None,
+                         share_h: int = 1, want_top2: bool = False,
+                         sep: int = 0):
+    """:func:`coarse_rank` over ``windows`` overlap-save lag windows of
+    (P, L) captures, a bounded group of windows per ``lax.map`` step.
+
+    Window ``w`` covers capture lags ``[(first_window + w) * v, ... + v)``
+    (``first_window`` may be traced: a mesh shard's offset); its Hankel
+    rows read the raw capture from that lag on (overlap-save's implicit
+    halo), zero-padded past the capture's end, and lags at or past
+    ``total_lags`` are masked.  ``global_windows`` (default
+    ``windows``) is the window count of the whole capture, which sizes
+    that padding.  Returns what :func:`coarse_rank` returns with
+    ``windows=windows``: (K, P*S*W) arrays in program order
+    ``(pair*S + band)*W + w``, lags window-local.
     """
-    p = hs_re.shape[0]
-    need = (windows - 1) * v + span + SUPER - 1
-    pad = need - hs_re.shape[-1]
-    if pad > 0:
-        hs_re = jnp.pad(hs_re, ((0, 0), (0, pad)))
-        hs_im = jnp.pad(hs_im, ((0, 0), (0, pad)))
-    win_len = span + SUPER - 1
-    slices = [jnp.stack([hs_re[:, w * v:w * v + win_len],
-                         hs_im[:, w * v:w * v + win_len]], axis=1)
-              for w in range(windows)]                # each (P, 2, L)
-    return jnp.stack(slices, axis=1).reshape(p * windows, 2, win_len)
+    pairs = hs_re.shape[0]
+    rows = ws1.shape[0]
+    grp = window_group(pairs, share_h, rows, num_blocks, sup, v, windows)
+    groups = -(-windows // grp)
+    win_len = fused_span(num_blocks, sup, v) + SUPER - 1
+    if global_windows is None:
+        global_windows = windows
+    need = (global_windows + groups * grp - windows - 1) * v + win_len
+    hp = jnp.stack([hs_re, hs_im], axis=1)            # (P, 2, L)
+    if need > hp.shape[-1]:
+        hp = jnp.pad(hp, ((0, 0), (0, 0), (0, need - hp.shape[-1])))
+
+    def step(g):
+        w0 = first_window + g * grp
+        h_ext = jnp.stack(
+            [jax.lax.dynamic_slice_in_dim(hp, (w0 + j) * v, win_len, axis=2)
+             for j in range(grp)], axis=1).reshape(pairs * grp, 2, win_len)
+        per_w = jnp.clip(
+            total_lags - (w0 + jnp.arange(grp, dtype=jnp.int32)) * v, 0, v)
+        return coarse_rank(ws1, ws2, lmat, h_ext, num_blocks, sup, v,
+                           windows=grp, share_h=share_h,
+                           num_valid=jnp.tile(per_w, pairs * share_h),
+                           want_top2=want_top2, sep=sep)
+
+    outs = jax.lax.map(step, jnp.arange(groups, dtype=jnp.int32))
+    progs = pairs * share_h
+
+    def merge(a):                                     # (G, K, progs*grp)
+        a = a.reshape(groups, rows, progs, grp).transpose(1, 2, 0, 3)
+        return a.reshape(rows, progs, groups * grp)[..., :windows].reshape(
+            rows, progs * windows)
+
+    return tuple(merge(a) for a in outs)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("xcor_len", "block_len", "backend", "windows",
-                     "total_lags", "needle_len", "interpret"))
+                     "total_lags", "needle_len"))
 def _batched_stein_os_jit(ns_re, ns_im, hs_re, hs_im, freqs_hz,
                           sample_rate, xcor_len, block_len, backend,
-                          windows: int, total_lags: int, needle_len: int,
-                          interpret: bool):
+                          windows: int, total_lags: int,
+                          needle_len: int):
     """Coarse windowed scan + on-device top-k exact refinement."""
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_synthesis_weights,
-    )
 
     p = ns_re.shape[0]
     b = ns_re.shape[-1] // block_len
     v = xcor_len                      # lags per window
     lmat, group = _needle_operator(ns_re, ns_im, block_len)
-    span = fused_span(b, group, v)
-    h_ext = _os_window_extensions(hs_re, hs_im, v, windows, span)
     ws1, ws2 = stein_synthesis_weights(freqs_hz, sample_rate, b,
                                        block_len)
-    # Per-window scanned-lag bound: the final window's range may end
-    # mid-window (num_lags cap), and real capture samples past it must
-    # not shadow in-range peaks (per-bin max/argmax — see
-    # fused_stein_rank's num_valid note).
-    per_w = np.clip(total_lags - np.arange(windows) * v, 0, v)
-    num_valid = jnp.asarray(np.tile(per_w, ns_re.shape[0]), jnp.int32)
-    if interpret:
-        lmat_rep = jnp.repeat(lmat, windows, axis=0)
-        vals, idxs = _coarse_rank_xla(ws1, ws2, lmat_rep, h_ext, b,
-                                      group, v, num_valid=num_valid)
-    else:
-        vals, idxs = fused_stein_rank(ws1, ws2, lmat, h_ext, b, group, v,
-                                      windows=windows,
-                                      num_valid=num_valid)
+    # The final window's range may end mid-window (num_lags cap): real
+    # capture samples past it must not shadow in-range peaks
+    # (windowed_coarse_rank bounds every window's scanned lags).
+    vals, idxs = windowed_coarse_rank(ws1, ws2, lmat, hs_re, hs_im, b,
+                                      group, v, windows, total_lags)
     k = freqs_hz.shape[0]
     vals = vals.reshape(k, p, windows)
     idxs = idxs.reshape(k, p, windows)
@@ -452,17 +555,17 @@ def _os_topk_refine(ns_re, ns_im, hs_re, hs_im, freqs_all, rowmax,
 @functools.partial(
     jax.jit,
     static_argnames=("xcor_len", "block_len", "backend", "windows",
-                     "total_lags", "needle_len", "num_bins", "interpret"))
+                     "total_lags", "needle_len", "num_bins"))
 def _banded_stein_os_jit(ns_re, ns_im, hs_re, hs_im, freqs_pad, centers,
                          rel, sample_rate, xcor_len, block_len, backend,
                          windows: int, total_lags: int, needle_len: int,
-                         num_bins: int, interpret: bool):
+                         num_bins: int):
     """Banded long-capture coarse scan: (pair, band, window) programs.
 
-    The windows x share_h composition of the fused kernel: each pair
+    The windows x share_h composition of :func:`coarse_rank`: each pair
     contributes one needle operator per band (needle shifted to the
     band center) and one haystack extension per overlap-save window —
-    S*W programs per pair, every one a full-size MXU workload.  For
+    S*W programs per pair.  For
     fine uniform grids this beats the unbanded windowed engine by
     design: the block length rises from the envelope-limited
     ``fs/(4*f_max)`` to ``min(128, sqrt(fs/2g))`` (see
@@ -470,11 +573,6 @@ def _banded_stein_os_jit(ns_re, ns_im, hs_re, hs_im, freqs_pad, centers,
     K*B*M by the same factor.  Exact per-pair re-score on absolute
     frequencies with the unshifted needles.
     """
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_synthesis_weights,
-    )
 
     p = ns_re.shape[0]
     s = centers.shape[0]
@@ -482,23 +580,10 @@ def _banded_stein_os_jit(ns_re, ns_im, hs_re, hs_im, freqs_pad, centers,
     sr, si = _shift_to_centers(ns_re, ns_im, centers, sample_rate)
     b = sr.shape[-1] // block_len
     lmat, sup = _needle_operator(sr, si, block_len)
-    span = fused_span(b, sup, v)
-    h_ext = _os_window_extensions(hs_re, hs_im, v, windows, span)
     ws1, ws2 = stein_synthesis_weights(rel, sample_rate, b, block_len)
-    per_w = np.clip(total_lags - np.arange(windows) * v, 0, v)
-    num_valid = jnp.asarray(np.tile(per_w, p * s), jnp.int32)
-    if interpret:
-        lmat_rep = jnp.repeat(lmat, windows, axis=0)
-        l = h_ext.shape[-1]
-        h_rep = jnp.broadcast_to(
-            h_ext.reshape(p, 1, windows, 2, l),
-            (p, s, windows, 2, l)).reshape(p * s * windows, 2, l)
-        vals, idxs = _coarse_rank_xla(ws1, ws2, lmat_rep, h_rep, b, sup,
-                                      v, num_valid=num_valid)
-    else:
-        vals, idxs = fused_stein_rank(ws1, ws2, lmat, h_ext, b, sup, v,
-                                      windows=windows, share_h=s,
-                                      num_valid=num_valid)
+    vals, idxs = windowed_coarse_rank(ws1, ws2, lmat, hs_re, hs_im, b,
+                                      sup, v, windows, total_lags,
+                                      share_h=s)
     kb = rel.shape[0]
     vals = vals.reshape(kb, p, s, windows)
     idxs = idxs.reshape(kb, p, s, windows)
@@ -527,9 +612,9 @@ def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
 
     BASELINE config 4's workload (16 pairs x 1024 bins x 32768 lags):
     each pair's lag axis splits into M-lag overlap-save windows and
-    every (pair, window) runs as one fused-kernel program — the batch
-    and window axes together keep the MXU saturated, vs the round-1
-    ``lax.map``-of-scans path.  Coarse ranking is window-global; the
+    every (pair, window) is one program of the coarse stage — the
+    batch and window axes together fill the device.  Coarse ranking is
+    window-global; the
     exact top-k re-score happens on a guard-extended slice at the
     coarse winning lag (the :func:`stein_overlap_save_peak` refine
     contract).
@@ -568,14 +653,13 @@ def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
     m = xcor_length(n)
     total_lags = num_lags or haystacks.shape[-1] - n + 1
     windows = -(-total_lags // m)
-    interpret = jax.default_backend() == "cpu"
     if use_banded:
         peak = _banded_stein_os_jit(
             jnp.asarray(ns_re), jnp.asarray(ns_im), jnp.asarray(hs_re),
             jnp.asarray(hs_im), jnp.asarray(freqs_pad),
             jnp.asarray(centers), jnp.asarray(rel),
             float(sample_rate), m, d, backend, windows,
-            total_lags, n, len(freqs), interpret)
+            total_lags, n, len(freqs))
         return (freqs_pad[np.asarray(peak.freq_idx)],
                 np.asarray(peak.lag_idx), np.asarray(peak.value))
     pad = (-n) % SUPER
@@ -585,7 +669,7 @@ def batched_stein_os_peak(needles, haystacks, freqs_hz, sample_rate, *,
     peak = _batched_stein_os_jit(
         jnp.asarray(ns_re), jnp.asarray(ns_im), jnp.asarray(hs_re),
         jnp.asarray(hs_im), jnp.asarray(freqs), float(sample_rate), m, d,
-        backend, windows, total_lags, n, interpret)
+        backend, windows, total_lags, n)
     return (freqs[np.asarray(peak.freq_idx)], np.asarray(peak.lag_idx),
             np.asarray(peak.value))
 
@@ -596,8 +680,8 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-pair peaks for a (P, N) batch: (freqs (P,), lags (P,), values).
 
-    The fused config-2 path: one conv + one Pallas kernel + one batched
-    re-score for the whole batch.  Bin-exact (same answers as
+    The config-2 path: one stage-A dot, one synthesis + rank and one
+    batched re-score for the whole batch.  Bin-exact (same answers as
     :func:`caf_cookoff_tpu.models.stein.stein_caf_peak` per pair).
     """
     backend = backend or default_backend()
@@ -612,12 +696,9 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
     freqs = as_grid(freqs_hz, dtype=ns_re.dtype)
     n = ns_re.shape[-1]
     m = xcor_length(n)
-    from caf_cookoff_tpu.ops.pallas_stein import FUSED_TILE
-
     if m % FUSED_TILE:
         raise EligibilityError(
             f"xcor length {m} not a multiple of {FUSED_TILE}")
-    interpret = jax.default_backend() == "cpu"
     try:
         d = _pow2_block_len(sample_rate, freqs, block_len)
     except SpanError:
@@ -633,7 +714,7 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
             jnp.asarray(hs_im), jnp.asarray(plan["freqs_pad"]),
             jnp.asarray(plan["centers"]), jnp.asarray(plan["rel"]),
             float(sample_rate), m, plan["block_len"], backend,
-            len(freqs), interpret)
+            len(freqs))
         return (plan["freqs_pad"][np.asarray(peak.freq_idx)],
                 np.asarray(peak.lag_idx), np.asarray(peak.value))
     # Pad the NEEDLE to whole super-blocks (appended zero blocks add
@@ -646,20 +727,20 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
     peak = _batched_stein_peak_jit(
         jnp.asarray(ns_re), jnp.asarray(ns_im), jnp.asarray(hs_re),
         jnp.asarray(hs_im), jnp.asarray(freqs), float(sample_rate), m, d,
-        backend, refine, interpret)
+        backend, refine)
     return (freqs[np.asarray(peak.freq_idx)], np.asarray(peak.lag_idx),
             np.asarray(peak.value))
 
 
 # ---------------------------------------------------------------------------
-# Multi-emitter lattices through the fused kernel (round 5)
+# Multi-emitter lattices through the coarse stage
 # ---------------------------------------------------------------------------
 #
-# The kernel's top-2-separated epilogue (``want_top2`` — two
-# ``>= exclude_lag``-separated lag candidates per doppler bin per
+# The coarse stage's top-2-separated epilogue (``want_top2`` — two
+# ``> exclude_lag``-separated lag candidates per doppler bin per
 # program) feeds an NMS lattice, so BASELINE config 4/5's
-# "streaming multi-emitter" workload runs at fused-kernel speed instead
-# of falling back to the XLA lattice scan (``parallel/sharded.
+# "streaming multi-emitter" workload runs through the segmented engine
+# instead of the filterbank lattice scan (``parallel/sharded.
 # _batched_os_peaks_jit``).  Coarse lattice entries are then re-scored
 # EXACTLY on a guard-extended capture window around each entry's lag
 # (per-entry rank-then-score — the same contract as the stein stream's
@@ -668,9 +749,8 @@ def batched_stein_peak(needles, haystacks, freqs_hz, sample_rate, *,
 #
 # Exactness contract (same as the stein stream): exact for emitters in
 # distinct doppler bins, and for same-bin pairs separated by more than
-# ``2*exclude_lag`` samples (the kernel's tile-merge guarantee; the CPU
-# twin is exact past ``exclude_lag``).  A same-bin pair within
-# (cell, 2*cell], or 3+ same-bin emitters in one window, needs the XLA
+# ``exclude_lag`` samples (the top-2 is taken over the whole lag
+# range).  3+ same-bin emitters in one window need the filterbank
 # lattice engines.  The reference has only a global argmax
 # (``caf_rust/src/caf/mod.rs:31-42``).
 
@@ -683,8 +763,8 @@ def _lattice_from_bin_candidates(vals_j, lags_j, num_peaks: int,
     """NMS lattice from per-bin candidate slots.
 
     ``vals_j``/``lags_j``: (K, J) per-bin candidates (J slots per bin —
-    the kernel's top-2, possibly stacked over windows).  Negative
-    values are kernel sentinels (no separated second / fully-masked
+    the coarse top-2, possibly stacked over windows).  Negative
+    values are sentinels (no separated second / fully-masked
     program) and become ``-inf`` so they can neither win nor suppress.
     ``bin_offset``/``num_bins``: banded grids report GLOBAL bins
     ``offset + row`` on the ascending ``freqs_pad`` lattice, with pad
@@ -844,16 +924,10 @@ def _batched_stein_peaks_core(ns_re, ns_im, hs_re, hs_im, freqs,
                               sample_rate, xcor_len: int, block_len: int,
                               backend: str, num_peaks: int,
                               exclude_freq: int, exclude_lag: int,
-                              guard: int, rescore_win: int,
-                              interpret: bool) -> CafPeak:
+                              guard: int, rescore_win: int) -> CafPeak:
     """Traceable equal-length multi-emitter batch pipeline (also the
     ``shard_map`` body of ``parallel.sharded.
     sharded_batched_stein_peaks``).  Fields (P_pairs, num_peaks)."""
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_synthesis_weights,
-    )
 
     pad = (-ns_re.shape[-1]) % SUPER
     np_re = jnp.pad(ns_re, ((0, 0), (0, pad)))
@@ -863,14 +937,9 @@ def _batched_stein_peaks_core(ns_re, ns_im, hs_re, hs_im, freqs,
     span = fused_span(b, group, xcor_len)
     h_ext = _haystack_extension(hs_re, hs_im, xcor_len, span)
     ws1, ws2 = stein_synthesis_weights(freqs, sample_rate, b, block_len)
-    if interpret:
-        v1, i1, v2, i2 = _coarse_rank_xla(
-            ws1, ws2, lmat, h_ext, b, group, xcor_len,
-            want_top2=True, sep=exclude_lag)
-    else:
-        v1, i1, v2, i2 = fused_stein_rank(
-            ws1, ws2, lmat, h_ext, b, group, xcor_len,
-            want_top2=True, sep=exclude_lag)
+    v1, i1, v2, i2 = coarse_rank(
+        ws1, ws2, lmat, h_ext, b, group, xcor_len,
+        want_top2=True, sep=exclude_lag)
     # (K, P) x4 -> per-pair (K, 2) candidate slots.
     vals_j = jnp.stack([v1, v2], axis=-1).transpose(1, 0, 2)
     lags_j = jnp.stack([i1, i2], axis=-1).transpose(1, 0, 2)
@@ -907,7 +976,7 @@ _batched_stein_peaks_jit = functools.partial(
     jax.jit,
     static_argnames=("xcor_len", "block_len", "backend", "num_peaks",
                      "exclude_freq", "exclude_lag", "guard",
-                     "rescore_win", "interpret"))(_batched_stein_peaks_core)
+                     "rescore_win"))(_batched_stein_peaks_core)
 
 
 def _stein_model_floor(needles: np.ndarray, haystacks: np.ndarray,
@@ -917,7 +986,7 @@ def _stein_model_floor(needles: np.ndarray, haystacks: np.ndarray,
     A noise-only xcor cell is a complex-Gaussian sum with that second
     moment (the same exponential-cell model as
     :meth:`caf_cookoff_tpu.models.streaming.StreamingCAF.noise_floor`)
-    — the fused kernel reduces bins to (max, argmax), so there are no
+    — the coarse stage reduces bins to (max, argmax), so there are no
     cells to measure.  ``valid_len`` (scalar, or per-pair sequence for
     batches padded to one length) restricts each haystack mean to the
     REAL capture samples: averaging zero padding in would bias the
@@ -945,13 +1014,13 @@ def batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
                         exclude_lag: Optional[int] = None,
                         backend: Optional[str] = None,
                         min_snr_db=None, with_snr: bool = False):
-    """Top-``num_peaks`` emitters PER PAIR through the fused batch
+    """Top-``num_peaks`` emitters PER PAIR through the segmented batch
     engine: ``(freqs (P, k), lags (P, k), values (P, k)[, snr_db])``,
     strongest first, empty slots ``-inf``.
 
     The multi-emitter sibling of :func:`batched_stein_peak` — config
-    2's batch shape with config 4's lattice semantics, at fused-kernel
-    speed (the kernel's ``want_top2`` epilogue carries two separated
+    2's batch shape with config 4's lattice semantics (the coarse
+    stage's ``want_top2`` epilogue carries two separated
     same-bin candidates per bin; see the module-level exactness
     contract).  Lags are CIRCULAR xcor indices like
     :func:`batched_stein_peak` (unwrap with :func:`caf_cookoff_tpu.
@@ -981,7 +1050,7 @@ def batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
         d = _pow2_block_len(sample_rate, freqs, block_len)
     except SpanError as e:
         raise EligibilityError(
-            f"{e} — the multi-emitter fused engine does not band wide "
+            f"{e} — the multi-emitter batch engine does not band wide "
             "spans; use find_peaks on caf_surface or the overlap-save "
             "lattice engines for this grid") from e
     auto = resolve_exclusions(needles[0], freqs, sample_rate, None, None)
@@ -991,12 +1060,11 @@ def batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
     # pass m, not n, or the guard collapses to 1 and the re-score
     # cannot correct a bf16 flat-top argmax more than 1 sample off.
     guard, rescore_win = _rescore_guards(n, auto[1], m)
-    interpret = jax.default_backend() == "cpu"
     pk = _batched_stein_peaks_jit(
         jnp.asarray(ns_re), jnp.asarray(ns_im), jnp.asarray(hs_re),
         jnp.asarray(hs_im), jnp.asarray(freqs), float(sample_rate), m, d,
         backend, int(num_peaks), exclude_freq, exclude_lag, guard,
-        rescore_win, interpret)
+        rescore_win)
     if min_snr_db is None and not with_snr:
         return (freqs[np.asarray(pk.freq_idx)], np.asarray(pk.lag_idx),
                 np.asarray(pk.value))
@@ -1009,17 +1077,16 @@ def batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
     static_argnames=("xcor_len", "block_len", "backend", "windows",
                      "total_lags", "needle_len", "num_peaks",
                      "exclude_freq", "exclude_lag", "guard",
-                     "rescore_win", "interpret"))
+                     "rescore_win"))
 def _batched_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs,
                                 sample_rate, xcor_len, block_len, backend,
                                 windows: int, total_lags: int,
                                 needle_len: int, num_peaks: int,
                                 exclude_freq: int, exclude_lag: int,
-                                guard: int, rescore_win: int,
-                                interpret: bool) -> CafPeak:
+                                guard: int, rescore_win: int) -> CafPeak:
     """Windowed multi-emitter coarse scan + per-entry exact re-score.
 
-    One fused-kernel program per (pair, window) with the top-2 per-bin
+    One coarse program per (pair, window) with the top-2 per-bin
     epilogue; per-window NMS lattices fold across windows (hierarchical
     — same 'sidelobe-level slots may differ from a flat fold' caveat as
     every hierarchical lattice merge in the framework), then each
@@ -1027,11 +1094,6 @@ def _batched_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs,
     slice.  Fields (P_pairs, num_peaks); lags are absolute capture
     offsets.
     """
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_synthesis_weights,
-    )
 
     p = ns_re.shape[0]
     n = needle_len
@@ -1041,20 +1103,10 @@ def _batched_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs,
     b = np_re.shape[-1] // block_len
     v = xcor_len
     lmat, group = _needle_operator(np_re, np_im, block_len)
-    span = fused_span(b, group, v)
-    h_ext = _os_window_extensions(hs_re, hs_im, v, windows, span)
     ws1, ws2 = stein_synthesis_weights(freqs, sample_rate, b, block_len)
-    per_w = np.clip(total_lags - np.arange(windows) * v, 0, v)
-    num_valid = jnp.asarray(np.tile(per_w, p), jnp.int32)
-    if interpret:
-        lmat_rep = jnp.repeat(lmat, windows, axis=0)
-        v1, i1, v2, i2 = _coarse_rank_xla(
-            ws1, ws2, lmat_rep, h_ext, b, group, v, num_valid=num_valid,
-            want_top2=True, sep=exclude_lag)
-    else:
-        v1, i1, v2, i2 = fused_stein_rank(
-            ws1, ws2, lmat, h_ext, b, group, v, windows=windows,
-            num_valid=num_valid, want_top2=True, sep=exclude_lag)
+    v1, i1, v2, i2 = windowed_coarse_rank(
+        ws1, ws2, lmat, hs_re, hs_im, b, group, v, windows, total_lags,
+        want_top2=True, sep=exclude_lag)
     k = freqs.shape[0]
     # (K, P*W) x4 -> (P, W, K, 2) candidates with GLOBAL lags.
     woff = jnp.arange(windows, dtype=jnp.int32) * v
@@ -1097,27 +1149,21 @@ def _batched_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs,
     static_argnames=("xcor_len", "block_len", "backend", "windows",
                      "total_lags", "needle_len", "num_bins", "num_peaks",
                      "exclude_freq", "exclude_lag", "guard",
-                     "rescore_win", "interpret"))
+                     "rescore_win"))
 def _banded_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs_pad,
                                centers, rel, sample_rate, xcor_len,
                                block_len, backend, windows: int,
                                total_lags: int, needle_len: int,
                                num_bins: int, num_peaks: int,
                                exclude_freq: int, exclude_lag: int,
-                               guard: int, rescore_win: int,
-                               interpret: bool) -> CafPeak:
+                               guard: int, rescore_win: int) -> CafPeak:
     """Banded long-capture multi-emitter scan: (pair, band, window)
-    fused programs with the top-2 per-bin epilogue, lattices on the
+    coarse programs with the top-2 per-bin epilogue, lattices on the
     ascending ``freqs_pad`` global-bin lattice (bin = band*Kb + j; pad
     rows masked), per-entry exact re-score on ABSOLUTE frequencies with
     the unshifted needles — the ``windows x share_h`` composition of
     :func:`_batched_stein_os_peaks_jit` (see its hierarchical-merge
     caveat) for grids the single-band envelope cannot take."""
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_synthesis_weights,
-    )
 
     p = ns_re.shape[0]
     s = centers.shape[0]
@@ -1126,25 +1172,10 @@ def _banded_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs_pad,
     sr, si = _shift_to_centers(ns_re, ns_im, centers, sample_rate)
     b = sr.shape[-1] // block_len
     lmat, sup = _needle_operator(sr, si, block_len)
-    span = fused_span(b, sup, v)
-    h_ext = _os_window_extensions(hs_re, hs_im, v, windows, span)
     ws1, ws2 = stein_synthesis_weights(rel, sample_rate, b, block_len)
-    per_w = np.clip(total_lags - np.arange(windows) * v, 0, v)
-    num_valid = jnp.asarray(np.tile(per_w, p * s), jnp.int32)
-    if interpret:
-        lmat_rep = jnp.repeat(lmat, windows, axis=0)
-        ln = h_ext.shape[-1]
-        h_rep = jnp.broadcast_to(
-            h_ext.reshape(p, 1, windows, 2, ln),
-            (p, s, windows, 2, ln)).reshape(p * s * windows, 2, ln)
-        v1, i1, v2, i2 = _coarse_rank_xla(
-            ws1, ws2, lmat_rep, h_rep, b, sup, v, num_valid=num_valid,
-            want_top2=True, sep=exclude_lag)
-    else:
-        v1, i1, v2, i2 = fused_stein_rank(
-            ws1, ws2, lmat, h_ext, b, sup, v, windows=windows,
-            share_h=s, num_valid=num_valid, want_top2=True,
-            sep=exclude_lag)
+    v1, i1, v2, i2 = windowed_coarse_rank(
+        ws1, ws2, lmat, hs_re, hs_im, b, sup, v, windows, total_lags,
+        share_h=s, want_top2=True, sep=exclude_lag)
     kb = rel.shape[0]
     woff = jnp.arange(windows, dtype=jnp.int32) * v
     vals_j = jnp.stack([v1, v2], axis=-1).reshape(kb, p, s, windows, 2)
@@ -1192,9 +1223,9 @@ def batched_stein_os_peaks(needles, haystacks, freqs_hz, sample_rate,
                            backend: Optional[str] = None,
                            min_snr_db=None, with_snr: bool = False,
                            capture_lens=None):
-    """Top-``num_peaks`` emitters PER PAIR of long captures at fused
-    speed — BASELINE config 4's "streaming multi-emitter" workload
-    through :func:`caf_cookoff_tpu.ops.pallas_stein.fused_stein_rank`.
+    """Top-``num_peaks`` emitters PER PAIR of long captures through the
+    segmented engine — BASELINE config 4's "streaming multi-emitter"
+    workload through :func:`coarse_rank`.
 
     The multi-emitter sibling of :func:`batched_stein_os_peak`:
     ``(freqs (P, k), lags (P, k), values (P, k)[, snr_db (P, k)])``,
@@ -1202,9 +1233,9 @@ def batched_stein_os_peaks(needles, haystacks, freqs_hz, sample_rate,
     sub-threshold slots ``-inf``.  Exclusion windows default to the
     first needle's resolution cell; ``min_snr_db`` / ``with_snr``
     threshold against the per-pair model floor
-    (:func:`_stein_model_floor` — the fused kernel emits per-bin
-    maxima, not cells, so the floor is modeled, not measured; the XLA
-    twin :func:`caf_cookoff_tpu.parallel.sharded.
+    (:func:`_stein_model_floor` — the coarse stage emits per-bin
+    maxima, not cells, so the floor is modeled, not measured; the
+    filterbank lattice :func:`caf_cookoff_tpu.parallel.sharded.
     batched_overlap_save_peaks` measures it).  See the module-level
     same-bin exactness contract.  Uniform grids route through the
     BANDED windowed engine whenever the band plan's modeled cost wins
@@ -1251,7 +1282,6 @@ def batched_stein_os_peaks(needles, haystacks, freqs_hz, sample_rate,
     exclude_freq = auto[0] if exclude_freq is None else int(exclude_freq)
     exclude_lag = auto[1] if exclude_lag is None else int(exclude_lag)
     guard, rescore_win = _rescore_guards(n, auto[1], haystacks.shape[-1])
-    interpret = jax.default_backend() == "cpu"
     if use_banded:
         pk = _banded_stein_os_peaks_jit(
             jnp.asarray(ns_re), jnp.asarray(ns_im), jnp.asarray(hs_re),
@@ -1259,14 +1289,14 @@ def batched_stein_os_peaks(needles, haystacks, freqs_hz, sample_rate,
             jnp.asarray(centers_r), jnp.asarray(rel_r),
             float(sample_rate), m, d, backend, windows,
             total_lags, n, len(freqs), int(num_peaks), exclude_freq,
-            exclude_lag, guard, rescore_win, interpret)
+            exclude_lag, guard, rescore_win)
         out_freqs = freqs_pad_r
     else:
         pk = _batched_stein_os_peaks_jit(
             jnp.asarray(ns_re), jnp.asarray(ns_im), jnp.asarray(hs_re),
             jnp.asarray(hs_im), jnp.asarray(freqs), float(sample_rate),
             m, d, backend, windows, total_lags, n, int(num_peaks),
-            exclude_freq, exclude_lag, guard, rescore_win, interpret)
+            exclude_freq, exclude_lag, guard, rescore_win)
         out_freqs = freqs
     if min_snr_db is None and not with_snr:
         return (out_freqs[np.asarray(pk.freq_idx)],

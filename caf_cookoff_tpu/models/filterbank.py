@@ -61,9 +61,9 @@ def _surface_rows_split(needle, haystack, freqs_hz, sample_rate,
 
     Same pipeline as :func:`_surface_rows` (haystack FFT hoisted,
     ``mod.rs:67-116`` operand conventions) but every complex value is a
-    (re, im) real pair; the FFT backend is either stacked real MXU
-    matmuls ('matmul', TPU-native) or a complex-HLO facade ('xla',
-    CPU-fast) — :mod:`caf_cookoff_tpu.ops.splitfft`.  The phasor bank is
+    (re, im) real pair; the FFT backend is either stacked real
+    matmuls ('matmul') or a complex-HLO facade ('xla', cuFFT on the
+    GPU) — :mod:`caf_cookoff_tpu.ops.splitfft`.  The phasor bank is
     evaluated only over the N needle samples (the padding region is
     zeros, so shifting it is wasted transcendentals).
     ``needle``/``haystack`` are (re, im) tuples; returns
@@ -133,15 +133,6 @@ def caf_surface(needle, haystack, freqs_hz, sample_rate, *,
 
         return stein_caf_surface(needle, haystack, freqs_hz, sample_rate)
     n_re, n_im, h_re, h_im, freqs = _split_inputs(needle, haystack, freqs_hz)
-    if backend.startswith("pallas"):
-        from caf_cookoff_tpu.ops.pallas_caf import pallas_caf_surface
-
-        _, _, tier = backend.partition("-")
-        return pallas_caf_surface(
-            jnp.asarray(n_re), jnp.asarray(n_im), jnp.asarray(h_re),
-            jnp.asarray(h_im), freqs, float(sample_rate),
-            xcor_length(n_re.shape[-1]),
-            precision="bf16" if tier == "bf16" else "high")
     return _surface_split_jit(n_re, n_im, h_re, h_im, jnp.asarray(freqs),
                               float(sample_rate),
                               xcor_length(n_re.shape[-1]), backend)
@@ -163,7 +154,7 @@ def caf_peak(needle, haystack, freqs_hz, sample_rate, *,
              backend: Optional[str] = None) -> Tuple[float, int, float]:
     """Fused surface+peak: (freq_hz, lag_idx, peak_value).
 
-    Never materializes the surface in HBM — the peak-only mode the
+    Never materializes the surface — the peak-only mode the
     reference lacks (it always keeps full rows, ``mod.rs:17-22``).
     """
     backend = backend or default_backend()
@@ -173,18 +164,9 @@ def caf_peak(needle, haystack, freqs_hz, sample_rate, *,
         return stein_caf_peak(needle, haystack, freqs_hz, sample_rate,
                               refine=not backend.endswith("-raw"))
     n_re, n_im, h_re, h_im, freqs = _split_inputs(needle, haystack, freqs_hz)
-    if backend.startswith("pallas"):
-        from caf_cookoff_tpu.ops.pallas_caf import pallas_caf_peak
-
-        _, _, tier = backend.partition("-")
-        peak = pallas_caf_peak(
-            jnp.asarray(n_re), jnp.asarray(n_im), jnp.asarray(h_re),
-            jnp.asarray(h_im), freqs, float(sample_rate),
-            xcor_length(n_re.shape[-1]), precision=tier or "high")
-    else:
-        peak = _peak_split_jit(n_re, n_im, h_re, h_im, jnp.asarray(freqs),
-                               float(sample_rate),
-                               xcor_length(n_re.shape[-1]), backend)
+    peak = _peak_split_jit(n_re, n_im, h_re, h_im, jnp.asarray(freqs),
+                           float(sample_rate), xcor_length(n_re.shape[-1]),
+                           backend)
     return (float(freqs[int(peak.freq_idx)]), int(peak.lag_idx),
             float(peak.value))
 
@@ -238,8 +220,8 @@ class FilterbankCAF:
         return self._freqs
 
     def _cast(self, x) -> np.ndarray:
-        # Host-side cast: device placement (and complex→split conversion
-        # on TPU) happens inside the dispatchers.
+        # Host-side cast: device placement (and complex→split
+        # conversion) happens inside the dispatchers.
         return np.asarray(x, dtype=self.config.complex_dtype)
 
     def _backend(self) -> str:

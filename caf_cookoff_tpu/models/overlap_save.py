@@ -14,9 +14,9 @@ per block, block ``b`` reads haystack samples ``[bV, bV + V + N - 1)``
 (zero-padded at the tail), so circular lag ``i < V`` of the block equals
 linear lag ``bV + i`` of the full correlation — no wrap contamination.
 
-All device math is split-complex (re, im real pairs — TPU runtimes have
-no complex support, :mod:`caf_cookoff_tpu.ops.splitfft`); complex dtypes
-appear only at the public API boundary.  The doppler-shifted needle
+All device math is split-complex (re, im real pairs,
+:mod:`caf_cookoff_tpu.ops.splitfft`); complex dtypes appear only at the
+public API boundary.  The doppler-shifted needle
 spectra are computed once and reused across all blocks (the hoisting the
 reference misses even for its single haystack FFT, SURVEY §3.1).  The
 peak path streams blocks through a ``lax.scan`` so the surface never
@@ -162,7 +162,7 @@ def streaming_peak(s_conj: SplitComplex, haystack: SplitComplex,
         if with_floor:
             # Floor accumulation from the raw (pre-sentinel) block rows:
             # (sum, count) over every VALID cell, fused into the block's
-            # one pass over VMEM.  f32 count: only ever a mean's
+            # one pass over the rows.  f32 count: only ever a mean's
             # denominator, so the >16.7M rounding (~1e-7 relative) is
             # irrelevant against dB-scale thresholds.  f32 sum: one
             # rounding per block against the growing partial sum —

@@ -11,13 +11,13 @@ refine-stage estimator (:func:`caf_cookoff_tpu.ops.refine.
 refine_peak_rate`) recovers rates up to about one bin of drift; THIS
 engine is the coarse search for everything beyond it.
 
-TPU shape: the rate axis is a **dechirp bank** — pre-chirp the needle by
+Shape: the rate axis is a **dechirp bank** — pre-chirp the needle by
 each candidate rate (one (R, N) phasor multiply, exact by shift
 composition: a swept copy ``n[t]e^{j2pi f t + j pi r t^2}`` correlates
 coherently with the ``r``-pre-chirped needle at offset ``f``) and run
 the standard filterbank over the whole bank as one extra vmap axis.
 One jitted program computes all R x K x M cells and reduces to the
-(rate, freq, lag) argmax triple without materializing anything in HBM —
+(rate, freq, lag) argmax triple without materializing the volume —
 the doppler fan-out trick, applied twice.
 
 Rate grid sizing: the rate resolution cell is ``~2/T^2`` (quadratic
@@ -397,21 +397,19 @@ def rate_overlap_save_peaks(needle, haystack, freqs_hz, rates_hz_per_s,
 # phase ``pi*r*(t/fs)^2`` is block-center-constant to the same
 # tolerance as the doppler phase, so every (rate, doppler) pair is ONE
 # synthesis row over the SHARED segment correlations
-# (:func:`caf_cookoff_tpu.ops.pallas_stein.stein_rate_synthesis_weights`)
-# — stage A runs once and the whole (R, K, lag) volume is MXU matmuls.
-# Rows are chunked so the kernel's accumulators stay in VMEM; stage A's
-# recompute per chunk is ~5% of a chunk's synthesis MACs at the
-# headline shapes.  Exactness is rank-then-score: top (rate, bin)
-# candidates re-score with EXACTLY pre-chirped needles on a
-# guard-extended capture slice, so answers match the exact serial
-# engine bit-for-bit on the golden tests.
+# (:func:`caf_cookoff_tpu.models.batched_stein.
+# stein_rate_synthesis_weights`) — stage A runs once per chunk and the
+# whole (R, K, lag) volume is synthesis matmuls.  Rows are chunked to
+# bound the per-call synthesized volume in device memory.  Exactness
+# is rank-then-score: top (rate, bin) candidates re-score with EXACTLY
+# pre-chirped needles on a guard-extended capture slice, so answers
+# match the exact serial engine bit-for-bit on the golden tests.
 
 
-# Row budget per fused-kernel call.  Mosaic's register-spill slots for
-# the stage-B epilogue scale with the row count (~50 KB/row measured on
-# v5e: 2754 rows spilled 142 MB and blew the 128 MB VMEM budget), so
-# chunks stay near 1024 rows; stage A's recompute per chunk is ~20% of
-# a chunk's synthesis MACs at the config-3 shape.
+# Synthesis-row budget per coarse call: the call materializes
+# (rows, programs, lags) float32 planes, ~1.6 GB per plane at 1024 rows
+# x 48 programs x 8192 lags (the config-3 shape), so chunks stay near
+# 1024 rows.
 _RATE_ROWS_BUDGET = 1024
 
 
@@ -426,7 +424,7 @@ def _rate_block_len(sample_rate, freqs_np, rates_np, needle_len: int,
     """
     from caf_cookoff_tpu.config import floor_pow2
     from caf_cookoff_tpu.models.stein import _auto_block_len
-    from caf_cookoff_tpu.ops.pallas_stein import SUPER
+    from caf_cookoff_tpu.models.batched_stein import SUPER
 
     fs = float(sample_rate)
     t_win = needle_len / fs
@@ -450,27 +448,21 @@ def _rate_block_len(sample_rate, freqs_np, rates_np, needle_len: int,
 @functools.partial(
     jax.jit,
     static_argnames=("total_lags", "needle_len", "block_len", "backend",
-                     "windows", "num_bins", "rate_chunk", "guard",
-                     "interpret"))
+                     "windows", "num_bins", "rate_chunk", "guard"))
 def _stein_rate_os_peak_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
                             rel, rates, sample_rate, total_lags: int,
                             needle_len: int, block_len: int, backend,
                             windows: int, num_bins: int, rate_chunk: int,
-                            guard: int, interpret: bool):
+                            guard: int):
     """Banded-general segmented rate search (plain grids are the
     one-band case: ``centers=[0]``, ``rel=freqs``).  Programs run
     (band, window)-major with ``share_h`` banding; synthesis rows are
-    (rate, relative-bin) pairs, chunked over rates to bound VMEM."""
+    (rate, relative-bin) pairs, chunked over rates to bound memory."""
     from caf_cookoff_tpu.models.batched_stein import (
-        _coarse_rank_xla,
         _needle_operator,
-        _os_window_extensions,
         _shift_to_centers,
-    )
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
         stein_rate_synthesis_weights,
+        windowed_coarse_rank,
     )
 
     n = needle_len
@@ -480,11 +472,6 @@ def _stein_rate_os_peak_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
     b = sr.shape[-1] // block_len
     v = xcor_length(n)
     lmat, group = _needle_operator(sr, si, block_len)
-    span = fused_span(b, group, v)
-    h_ext = _os_window_extensions(h_re[None], h_im[None], v, windows,
-                                  span)
-    per_w = np.clip(total_lags - np.arange(windows) * v, 0, v)
-    num_valid = jnp.asarray(np.tile(per_w, s), jnp.int32)
     kb = rel.shape[0]
     k = freqs_pad.shape[0]                           # S * Kb
     num_rates = rates.shape[0]
@@ -494,16 +481,9 @@ def _stein_rate_os_peak_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
         rc = min(rate_chunk, num_rates - c0)
         ws1, ws2 = stein_rate_synthesis_weights(
             rel, rates[c0:c0 + rc], sample_rate, b, block_len)
-        if interpret:
-            lmat_rep = jnp.repeat(lmat, windows, axis=0)
-            h_rep = jnp.tile(h_ext, (s, 1, 1))
-            vals, idxs = _coarse_rank_xla(ws1, ws2, lmat_rep, h_rep, b,
-                                          group, v, num_valid=num_valid)
-        else:
-            vals, idxs = fused_stein_rank(ws1, ws2, lmat, h_ext, b,
-                                          group, v, windows=windows,
-                                          share_h=s,
-                                          num_valid=num_valid)
+        vals, idxs = windowed_coarse_rank(
+            ws1, ws2, lmat, h_re[None], h_im[None], b, group, v, windows,
+            total_lags, share_h=s)
         vals = vals.reshape(rc, kb, s, windows)
         glob = (idxs.reshape(rc, kb, s, windows)
                 + woff[None, None, None, :])
@@ -635,8 +615,7 @@ def stein_rate_os_peak(needle, haystack, freqs_hz, rates_hz_per_s,
     frequency convention, absolute lags, earlier-rate tie-break) at a
     fraction of the cost: trial rates are synthesis rows over shared
     segment correlations instead of R full block scans (see the
-    section comment above; measured speedup in
-    ``docs/rate_bench.json``).  Wide uniform grids band exactly like
+    section comment above).  Wide uniform grids band exactly like
     the first-order engines (with the rate drift folded into the band
     envelope); grids/rates outside every segmented envelope raise
     ``SpanError`` — fall back to the exact serial engine there.
@@ -655,13 +634,12 @@ def stein_rate_os_peak(needle, haystack, freqs_hz, rates_hz_per_s,
         sample_rate, freqs, rates, n, block_len, h_re.shape[-1])
     m = xcor_length(n)
     windows = -(-total_lags // m)
-    interpret = jax.default_backend() == "cpu"
     r_idx, value, f_idx, lag = _stein_rate_os_peak_jit(
         jnp.asarray(n_re), jnp.asarray(n_im), jnp.asarray(h_re),
         jnp.asarray(h_im), jnp.asarray(freqs_pad), jnp.asarray(centers),
         jnp.asarray(rel), jnp.asarray(rates), float(sample_rate),
         total_lags, n, d, backend, windows, len(freqs), rate_chunk,
-        guard, interpret)
+        guard)
     return (float(rates[int(r_idx)]), float(freqs_pad[int(f_idx)]),
             int(lag), float(value))
 
@@ -671,7 +649,7 @@ def stein_rate_os_peak(needle, haystack, freqs_hz, rates_hz_per_s,
     static_argnames=("total_lags", "needle_len", "block_len", "backend",
                      "windows", "num_bins", "rate_chunk", "guard",
                      "rescore_win", "num_peaks", "exclude_freq",
-                     "exclude_lag", "half_t_bins", "interpret"))
+                     "exclude_lag", "half_t_bins"))
 def _stein_rate_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
                              rel, rates, sample_rate, total_lags: int,
                              needle_len: int, block_len: int, backend,
@@ -679,27 +657,22 @@ def _stein_rate_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
                              rate_chunk: int, guard: int,
                              rescore_win: int, num_peaks: int,
                              exclude_freq: int, exclude_lag: int,
-                             half_t_bins, interpret: bool):
+                             half_t_bins):
     """Multi-emitter segmented rate search: per-rate NMS lattices from
-    the kernel's top-2 per-bin candidates, cross-rate-merged in
+    the coarse stage's top-2 per-bin candidates, cross-rate-merged in
     window-center frequency space (the rate-aware NMS of
     :func:`_merge_rate_lattice`), each survivor re-scored EXACTLY with
     its own pre-chirped needle on a guard-extended capture slice
-    (doubly cell-constrained like the first-order fused lattices)."""
+    (doubly cell-constrained like the first-order segmented lattices)."""
     from caf_cookoff_tpu.models.batched_stein import (
-        _coarse_rank_xla,
         _entry_candidate_bins,
         _lattice_from_bin_candidates,
         _needle_operator,
-        _os_window_extensions,
         _shift_to_centers,
+        stein_rate_synthesis_weights,
+        windowed_coarse_rank,
     )
     from caf_cookoff_tpu.models.filterbank import _surface_rows_split
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
-        stein_rate_synthesis_weights,
-    )
     from caf_cookoff_tpu.ops.peak import CafPeak, find_peak_2d, merge_peaks
 
     n = needle_len
@@ -710,11 +683,6 @@ def _stein_rate_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
     b = sr.shape[-1] // block_len
     v = xcor_length(n)
     lmat, group = _needle_operator(sr, si, block_len)
-    span = fused_span(b, group, v)
-    h_ext = _os_window_extensions(h_re[None], h_im[None], v, windows,
-                                  span)
-    per_w = np.clip(total_lags - np.arange(windows) * v, 0, v)
-    num_valid = jnp.asarray(np.tile(per_w, s), jnp.int32)
     kb = rel.shape[0]
     k = freqs_pad.shape[0]
     num_rates = rates.shape[0]
@@ -727,17 +695,9 @@ def _stein_rate_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
         rc = min(rate_chunk, num_rates - c0)
         ws1, ws2 = stein_rate_synthesis_weights(
             rel, rates[c0:c0 + rc], sample_rate, b, block_len)
-        if interpret:
-            lmat_rep = jnp.repeat(lmat, windows, axis=0)
-            h_rep = jnp.tile(h_ext, (s, 1, 1))
-            v1, i1, v2, i2 = _coarse_rank_xla(
-                ws1, ws2, lmat_rep, h_rep, b, group, v,
-                num_valid=num_valid, want_top2=True, sep=exclude_lag)
-        else:
-            v1, i1, v2, i2 = fused_stein_rank(
-                ws1, ws2, lmat, h_ext, b, group, v, windows=windows,
-                share_h=s, num_valid=num_valid, want_top2=True,
-                sep=exclude_lag)
+        v1, i1, v2, i2 = windowed_coarse_rank(
+            ws1, ws2, lmat, h_re[None], h_im[None], b, group, v, windows,
+            total_lags, share_h=s, want_top2=True, sep=exclude_lag)
         vals_j = jnp.stack([v1, v2], axis=-1).reshape(
             rc, kb, s, windows, 2)
         lags_j = (jnp.stack([i1, i2], axis=-1).reshape(
@@ -833,8 +793,8 @@ def stein_rate_os_peaks(needle, haystack, freqs_hz, rates_hz_per_s,
     ``min_snr_db`` thresholds against the model floor
     (``sum|n|^2 * mean|h|^2`` — the dechirp has unit magnitude, so one
     floor serves every trial rate) over ``R*K*num_lags`` cells.
-    Same-bin exactness contract as the first-order fused lattices
-    (exact past ``2*exclude_lag`` same-bin separation).
+    Same-bin exactness contract as the first-order segmented lattices
+    (exact past ``exclude_lag`` same-bin separation).
     """
     from caf_cookoff_tpu.models.batched_stein import (
         _rescore_guards,
@@ -861,14 +821,13 @@ def stein_rate_os_peaks(needle, haystack, freqs_hz, rates_hz_per_s,
     m = xcor_length(n)
     windows = -(-total_lags // m)
     htb = _rate_grid_half_t_bins(freqs, n, sample_rate)
-    interpret = jax.default_backend() == "cpu"
     vals, _k, lags, ridx, fws, _rv = _stein_rate_os_peaks_jit(
         jnp.asarray(n_re), jnp.asarray(n_im), jnp.asarray(h_re),
         jnp.asarray(h_im), jnp.asarray(freqs_pad), jnp.asarray(centers),
         jnp.asarray(rel), jnp.asarray(rates), float(sample_rate),
         total_lags, n, d, backend, windows, len(freqs), rate_chunk,
         guard, rescore_win, int(num_peaks), exclude_freq, exclude_lag,
-        htb, interpret)
+        htb)
     vals = np.asarray(vals)
     out_rates = rates.astype(np.float64)[np.asarray(ridx)]
     out_freqs = np.asarray(freqs_pad, np.float64)[np.asarray(fws)]

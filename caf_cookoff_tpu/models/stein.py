@@ -4,7 +4,7 @@ The reference cites Stein's classic paper (``README.md:159-161``,
 "Algorithms for Ambiguity Function Processing", 1981) but implements
 only the brute-force filterbank: one shift + FFT-correlation per doppler
 bin, 2K+1 length-M transforms per surface.  This engine implements the
-paper's segmentation idea, restructured for the MXU:
+paper's segmentation idea, restructured around one matmul:
 
     r_k[tau] = sum_s h[s+tau] conj(n[s]) e^{-j w_k s}
              ~ sum_b e^{-j w_k (bD + c)} * G[b, tau]
@@ -17,7 +17,7 @@ paper's segmentation idea, restructured for the MXU:
   transforms total, independent of K.
 * Stage B — doppler synthesis: ``R = W @ G`` with
   ``W[k,b] = e^{-j w_k (bD + c)}``, ``c = (D-1)/2`` — one stacked
-  split-complex (2K, 2B) x (2B, M) MXU matmul.
+  split-complex (2K, 2B) x (2B, M) matmul.
 
 Cost: (2B+1) transforms + K*B*M complex MACs, vs the filterbank's 2K
 transforms + K*M elementwise work.  At the reference shape (K=400,
@@ -41,9 +41,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from caf_cookoff_tpu.config import (as_grid, default_backend, floor_pow2,
-                                    xcor_length)
-from caf_cookoff_tpu.errors import EligibilityError, EngineError, SpanError
+from caf_cookoff_tpu.config import as_grid, default_backend, xcor_length
+from caf_cookoff_tpu.errors import EngineError, SpanError
 from caf_cookoff_tpu.ops import splitfft
 from caf_cookoff_tpu.ops.peak import CafPeak, find_peak_2d
 
@@ -127,15 +126,14 @@ _REFINE_SEP_BINS = 4
 
 @functools.partial(
     jax.jit,
-    static_argnames=("xcor_len", "block_len", "backend", "refine",
-                     "fused"))
+    static_argnames=("xcor_len", "block_len", "backend", "refine"))
 def _stein_peak_jit(n_re, n_im, h_re, h_im, freqs_hz, sample_rate,
-                    xcor_len, block_len, backend, refine: bool = True,
-                    fused: bool = False):
+                    xcor_len, block_len, backend, refine: bool = True):
     if refine:
         # The coarse pass only RANKS candidate bins — the exact re-score
-        # below restores bin-exact answers — so it runs wholly at bf16
-        # (single-pass MXU rate) regardless of the exact backend tier.
+        # below restores bin-exact answers — so it runs at the cheapest
+        # tier ('matmul-bf16' DFT, default matmul precision) regardless
+        # of the exact backend tier.
         coarse_backend = ("matmul-bf16" if backend.startswith("matmul")
                           else backend)
         synth_prec = jax.lax.Precision.DEFAULT
@@ -143,50 +141,16 @@ def _stein_peak_jit(n_re, n_im, h_re, h_im, freqs_hz, sample_rate,
         coarse_backend = backend
         synth_prec = None
 
-    if refine and fused:
-        # Fully fused Pallas path (stage A folded in): Hankel stage-A
-        # dot + synthesis + rank in one VMEM-resident program — neither
-        # the segment correlations nor the (2K, M) synthesized rows
-        # ever touch HBM.  (The round-1 synthesis-only fusion lost to
-        # XLA, 70 vs 55 us; folding stage A is what changed the
-        # economics — see ARCHITECTURE.md §7.)
-        from caf_cookoff_tpu.models.batched_stein import (
-            _haystack_extension,
-            _needle_operator,
-        )
-        from caf_cookoff_tpu.ops.pallas_stein import (
-            SUPER,
-            fused_span,
-            fused_stein_rank,
-            stein_synthesis_weights,
-        )
-
-        pad = (-n_re.shape[-1]) % SUPER
-        nr = jnp.pad(n_re, (0, pad))[None]
-        ni = jnp.pad(n_im, (0, pad))[None]
-        b = nr.shape[-1] // block_len
-        lmat, group = _needle_operator(nr, ni, block_len)
-        span = fused_span(b, group, xcor_len)
-        h_ext = _haystack_extension(h_re[None], h_im[None], xcor_len,
-                                    span)
-        ws1, ws2 = stein_synthesis_weights(freqs_hz, sample_rate, b,
-                                           block_len)
-        vals, _ = fused_stein_rank(
-            ws1, ws2, lmat, h_ext, b, group, xcor_len,
-            interpret=jax.default_backend() == "cpu", want_idxs=False)
-        rowmax_coarse = vals[:, 0]
-    else:
-        rows = _stein_rows((n_re, n_im), (h_re, h_im), freqs_hz,
-                           sample_rate, xcor_len, block_len,
-                           coarse_backend, synth_prec)
-        mag2 = splitfft.mag2(rows)
-        if not refine:
-            return find_peak_2d(mag2)
-        rowmax_coarse = jnp.max(mag2, axis=-1)
+    rows = _stein_rows((n_re, n_im), (h_re, h_im), freqs_hz, sample_rate,
+                       xcor_len, block_len, coarse_backend, synth_prec)
+    mag2 = splitfft.mag2(rows)
+    if not refine:
+        return find_peak_2d(mag2)
+    rowmax_coarse = jnp.max(mag2, axis=-1)
     # The block-constant phase approximation perturbs near-tie adjacent
-    # bins (the same failure mode as single-pass bf16 in the Pallas
-    # kernel); re-scoring the top candidates with the exact filterbank
-    # rows restores bin-exact answers at ~2% extra cost.
+    # bins (as does a reduced-precision coarse pass); re-scoring the top
+    # candidates with the exact filterbank rows restores bin-exact
+    # answers.
     return _refine_topk((n_re, n_im), (h_re, h_im), freqs_hz,
                         rowmax_coarse, sample_rate, xcor_len, backend)
 
@@ -253,7 +217,7 @@ def _plan_bands(sample_rate: float, freqs_hz: np.ndarray,
     """Band partition for wide-span grids, or ``None`` if infeasible.
 
     Only uniform grids band cleanly (every band then shares ONE
-    relative grid, so the whole sweep is a single batched kernel call
+    relative grid, so the whole sweep is a single batched coarse call
     with the band axis as the pair axis).  Bands are sized so the
     relative |f| stays within the pow2-32-segment envelope.
 
@@ -275,8 +239,8 @@ def _plan_bands(sample_rate: float, freqs_hz: np.ndarray,
     # so with s bands of kb bins each, cost(D) ~ s*(1 + kb/D) in units
     # of 4N.  The continuous optimum is D* = sqrt(fs/(2g)), but the
     # pow2 quantization matters (floor_pow2(D*) can lose to the next
-    # pow2 up — and small D doubles the kernel's block-count rows and
-    # with them its VMEM scratch), so evaluate the model at every
+    # pow2 up — and small D doubles the block-count rows of stage A
+    # and of G), so evaluate the model at every
     # eligible pow2 and take the cheapest.
     best = None
     for cand in (8, 16, 32, 64, 128):
@@ -339,16 +303,16 @@ def _band_routing(sample_rate, freqs_np, d: Optional[int], *,
 
 def _banded_stein_peak_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
                            rel, sample_rate, xcor_len, block_len,
-                           backend, num_bins, interpret):
+                           backend, num_bins):
     """Wide-span Stein for ONE pair: the P=1 case of the banded batch
     engine (``models/batched_stein._banded_batched_jit`` — band centers
-    become the fused kernel's batch axis via ``share_h``)."""
+    become the coarse stage's batch axis via ``share_h``)."""
     from caf_cookoff_tpu.models.batched_stein import _banded_batched_jit
 
     peak = _banded_batched_jit(
         n_re[None], n_im[None], h_re[None], h_im[None], freqs_pad,
         centers, rel, sample_rate, xcor_len, block_len, backend,
-        num_bins, interpret)
+        num_bins)
     return CafPeak(value=peak.value[0], freq_idx=peak.freq_idx[0],
                    lag_idx=peak.lag_idx[0])
 
@@ -360,7 +324,7 @@ def _auto_block_len(sample_rate: float, freqs_hz: np.ndarray,
     The block-constant phase error is ``w_max * D / 2``; keeping it
     under ~pi/8 requires ``D <= fs / (4 * f_max)``.  Wide doppler spans
     make the segmented engine pointless (D too small to amortize) — use
-    the filterbank/pallas backends there.
+    the filterbank backends there.
     """
     f_max = float(np.max(np.abs(freqs_hz))) if len(freqs_hz) else 0.0
     if f_max <= 0:
@@ -371,7 +335,7 @@ def _auto_block_len(sample_rate: float, freqs_hz: np.ndarray,
         raise SpanError(
             f"doppler span +-{f_max:.0f} Hz needs segment length <= {limit} "
             f"(< 8) at fs={sample_rate:.0f}; the segmented (stein) engine "
-            "does not pay off — use the 'matmul' or 'pallas' backend")
+            "does not pay off — use the 'xla' or 'matmul' backend")
     return d
 
 
@@ -506,17 +470,14 @@ def stein_overlap_save_peak(needle, haystack, freqs_hz, sample_rate, *,
     window at the found lag is re-scored by :func:`stein_caf_peak`'s
     exact top-k path, restoring bin-exact frequency.
 
-    On TPU with ``refine=True`` the coarse pass routes through the
-    windowed fused kernel (:func:`~caf_cookoff_tpu.models.batched_stein.
+    With ``refine=True`` the coarse pass routes through the windowed
+    engine (:func:`~caf_cookoff_tpu.models.batched_stein.
     batched_stein_os_peak` at P=1): every overlap-save lag window (and,
-    for grids the band planner favors, every band) is one grid program
-    — measured 1.14 vs 1.96 ms at the config-3 shape (2000 × 65536).
-    Shapes outside the kernel's envelope (no pow2 block or band plan,
-    VMEM demand past the chip) fall back to the XLA scan below.
-    Doppler spans past the single-segment envelope (|f| > fs/32) can
-    ONLY run the banded windowed engine — that route engages on every
-    platform (the scan has no banded mode), so wide-span long captures
-    work on CPU too.
+    for grids the band planner favors, every band) is one program of
+    the coarse stage.  Shapes outside its envelope (no pow2 block or
+    band plan) fall back to the block scan below.  Doppler spans past
+    the single-segment envelope (|f| > fs/32) can ONLY run the banded
+    windowed engine (the scan has no banded mode).
     """
     backend = backend or default_backend()
     (n_re, n_im), (h_re, h_im), freqs = _prep_long(needle, haystack,
@@ -526,8 +487,7 @@ def stein_overlap_save_peak(needle, haystack, freqs_hz, sample_rate, *,
         span_err = None
     except SpanError as e:
         scan_block, span_err = None, e  # past single-segment envelope
-    if (refine and h_re.shape[-1] > n_re.shape[-1]
-            and _use_windowed_engine(scan_block)):
+    if refine and h_re.shape[-1] > n_re.shape[-1]:
         from caf_cookoff_tpu.models.batched_stein import (
             batched_stein_os_peak,
         )
@@ -539,7 +499,7 @@ def stein_overlap_save_peak(needle, haystack, freqs_hz, sample_rate, *,
                 block_len=block_len, backend=backend)
             return float(fr[0]), int(lg[0]), float(vv[0])
         except EngineError:
-            # Span/VMEM/shape outside the kernel's envelope -> scan.
+            # Span/shape outside the windowed engine's envelope -> scan.
             # Only the typed envelope conditions reroute; an unrelated
             # ValueError (shape bug, broken invariant) propagates.
             if scan_block is None:
@@ -577,14 +537,6 @@ def stein_overlap_save_peak(needle, haystack, freqs_hz, sample_rate, *,
     return freq, start + int(delta), value
 
 
-def _use_windowed_engine(scan_block) -> bool:
-    """Gate for the batched windowed engine inside the long-capture
-    path: mandatory when the scan can't take the span (banded-only),
-    otherwise preferred on accelerators and skipped on CPU (where the
-    interpret-mode fused kernel is slower than the scan)."""
-    return scan_block is None or jax.default_backend() != "cpu"
-
-
 def _prep_long(needle, haystack, freqs_hz):
     n = splitfft.split_array(needle)
     h = splitfft.split_array(haystack)
@@ -597,20 +549,20 @@ def _prep_long(needle, haystack, freqs_hz):
 
 def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
                    block_len: int = 64, refine: bool = True,
-                   fused: Optional[bool] = None,
                    backend: Optional[str] = None
                    ) -> Tuple[float, int, float]:
     """(freq_hz, lag, value) via the segmented fast path.
 
     ``refine=True`` (default) re-scores the top candidate bins with the
-    exact filterbank rows, restoring bin-exact golden answers.
-    ``fused`` selects the fully fused Pallas kernel (defaults to on for
-    TPU when the shapes are eligible, off on CPU).
+    exact filterbank rows, restoring bin-exact golden answers.  The
+    coarse stage A is the FFT segment correlations (the batch engines
+    take the direct Hankel-row dot, :func:`~caf_cookoff_tpu.models.
+    batched_stein.coarse_rank`).
 
     Doppler spans past the single-segment envelope (|f| > fs/32) run
     the BANDED path: the uniform grid splits into bands, the needle is
     shifted to each band center (exact — shift composition), and the
-    bands sweep as the batch axis of one fused-kernel call, so the
+    bands sweep as the batch axis of one coarse-stage call, so the
     segmented engine covers arbitrary spans.
     """
     backend = backend or default_backend()
@@ -619,38 +571,19 @@ def stein_caf_peak(needle, haystack, freqs_hz, sample_rate, *,
     try:
         block_len = _auto_block_len(sample_rate, freqs, block_len)
     except SpanError:
-        # Banded auto-path only: an explicit fused flag pins the
-        # single-band engines, which genuinely cannot take the span.
-        plan = _plan_bands(sample_rate, freqs) if refine and fused is None \
-            else None
+        # Banded path: it ranks coarsely and needs the exact re-score.
+        plan = _plan_bands(sample_rate, freqs) if refine else None
         if plan is None or xl % 512:
             raise
         peak = _banded_stein_peak_jit(
             n_re, n_im, h_re, h_im, jnp.asarray(plan["freqs_pad"]),
             jnp.asarray(plan["centers"]), jnp.asarray(plan["rel"]),
             float(sample_rate), xl, plan["block_len"], backend,
-            len(freqs), jax.default_backend() == "cpu")
+            len(freqs))
         return (float(plan["freqs_pad"][int(peak.freq_idx)]),
                 int(peak.lag_idx), float(peak.value))
-    # Fused-kernel eligibility: pow2 block length in [8, 128] (the
-    # super-block layout) and a 512-multiple correlation length.
-    d_fused = floor_pow2(min(block_len, 128))
-    eligible = refine and d_fused >= 8 and xl % 512 == 0
-    if fused is None:
-        # Round 1's synthesis-only fusion lost to XLA (70 vs 55 us);
-        # with stage A folded in (fused_stein_rank) the kernel WINS —
-        # 42.7 vs 58.6 us/surface measured on v5e — so it is the TPU
-        # default wherever eligible (ARCHITECTURE.md §7).
-        fused = eligible and jax.default_backend() != "cpu"
-    if fused:
-        if not eligible:
-            raise EligibilityError(
-                f"fused kernel needs refine=True, a pow2 block length "
-                f">= 8 (got {block_len} -> {d_fused}) and a 512-multiple "
-                f"correlation length (got {xl}); use fused=False")
-        block_len = d_fused
     peak = _stein_peak_jit(n_re, n_im, h_re, h_im, jnp.asarray(freqs),
                            float(sample_rate), xl, block_len, backend,
-                           refine, fused)
+                           refine)
     return (float(freqs[int(peak.freq_idx)]), int(peak.lag_idx),
             float(peak.value))

@@ -122,17 +122,19 @@ def _stream_lattice_step_jit(sc_re, sc_im, tail_re, tail_im, ch_re, ch_im,
 @functools.partial(
     jax.jit,
     static_argnames=("num_blocks", "group", "chunk_len", "needle_pad",
-                     "halo", "interpret"))
+                     "halo"))
 def _stein_stream_step_jit(ws1, ws2, lmat, tail_re, tail_im, ch_re,
                            ch_im, best_value, best_freq, best_lag,
                            bw_re, bw_im, bw_start, base_lag, valid_len,
                            num_blocks, group, chunk_len, needle_pad,
-                           halo, interpret):
-    """One stein-mode streaming step: fused kernel over [tail | chunk].
+                           halo):
+    """One stein-mode streaming step: the coarse stage over
+    [tail | chunk].
 
     The window's lags [base_lag, base_lag + chunk_len) run through
-    :func:`caf_cookoff_tpu.ops.pallas_stein.fused_stein_rank` at P=1 —
-    per-chunk cost is one kernel program instead of K inverse FFTs.
+    :func:`caf_cookoff_tpu.models.batched_stein.coarse_rank` at P=1 —
+    per-chunk cost is one stage-A dot and one synthesis matmul instead
+    of K inverse FFTs.
     Bins whose best lag falls past ``valid_len`` (zero-padded short
     chunks: incomplete data) are masked; those lags re-scan with full
     data next chunk.  Alongside the best triple, the step carries a
@@ -140,8 +142,8 @@ def _stein_stream_step_jit(ws1, ws2, lmat, tail_re, tail_im, ch_re,
     :meth:`StreamingCAF.best` can re-score it exactly without the
     engine retaining capture history.
     """
-    from caf_cookoff_tpu.ops.pallas_stein import SUPER, fused_span, \
-        fused_stein_rank
+    from caf_cookoff_tpu.models.batched_stein import (SUPER, coarse_rank,
+                                                      fused_span)
 
     window = (jnp.concatenate([tail_re, ch_re]),
               jnp.concatenate([tail_im, ch_im]))
@@ -158,13 +160,12 @@ def _stein_stream_step_jit(ws1, ws2, lmat, tail_re, tail_im, ch_re,
     h_ext = jnp.stack([jnp.pad(window[0], (0, max(0, need - win_len))),
                        jnp.pad(window[1], (0, max(0, need - win_len)))]
                       )[None, :, :need]
-    # valid_len rides into the kernel as the scanned-lag bound: masking
-    # the per-bin (max, argmax) AFTER the kernel would drop a bin's
+    # valid_len rides into the coarse stage as the scanned-lag bound:
+    # masking the per-bin (max, argmax) afterwards would drop a bin's
     # valid peak along with a zero-padded-region shadow (see
-    # fused_stein_rank's num_valid note).
-    vals, idxs = fused_stein_rank(
+    # coarse_rank's num_valid note).
+    vals, idxs = coarse_rank(
         ws1, ws2, lmat, h_ext, num_blocks, group, chunk_len,
-        interpret=interpret,
         num_valid=jnp.reshape(jnp.asarray(valid_len, jnp.int32), (1,)))
     vals = vals[:, 0]
     k_loc = jnp.argmax(vals).astype(jnp.int32)
@@ -192,30 +193,27 @@ def _stein_stream_step_jit(ws1, ws2, lmat, tail_re, tail_im, ch_re,
 @functools.partial(
     jax.jit,
     static_argnames=("num_blocks", "group", "chunk_len", "needle_pad",
-                     "halo", "interpret", "num_peaks", "exclude_freq",
+                     "halo", "num_peaks", "exclude_freq",
                      "exclude_lag"))
 def _stein_stream_lattice_step_jit(ws1, ws2, lmat, tail_re, tail_im,
                                    ch_re, ch_im, best_value, best_freq,
                                    best_lag, bws, bw_starts, base_lag,
                                    valid_len, num_blocks, group,
-                                   chunk_len, needle_pad, halo, interpret,
+                                   chunk_len, needle_pad, halo,
                                    num_peaks, exclude_freq, exclude_lag):
     """Stein-mode multi-emitter step: top-``num_peaks`` lattice through
-    the fused kernel's per-bin TOP-2-SEPARATED (max, argmax), each
+    the coarse stage's per-bin TOP-2-SEPARATED (max, argmax), each
     entry carrying its own guard-extended window slice for the exact
     final re-score.
 
-    The kernel's ``want_top2`` epilogue (round 4) carries two
-    ``>=exclude_lag``-separated lag candidates per doppler bin per
-    chunk window, so two emitters sharing a doppler bin at distinct
-    lags BOTH reach the lattice (previously only the bin's single max
-    did).  Exact when the same-bin pair is more than ``2*exclude_lag``
-    apart (see ``fused_stein_rank``'s guarantee); a pair inside
-    (cell, 2*cell] of each other, or three-plus same-bin emitters in
-    ONE window, still needs the XLA streaming lattice.
+    The ``want_top2`` epilogue carries two ``>exclude_lag``-separated
+    lag candidates per doppler bin per chunk window, so two emitters
+    sharing a doppler bin at distinct lags BOTH reach the lattice.
+    Three-plus same-bin emitters in ONE window still need the
+    filterbank streaming lattice.
     """
-    from caf_cookoff_tpu.ops.pallas_stein import SUPER, fused_span, \
-        fused_stein_rank
+    from caf_cookoff_tpu.models.batched_stein import (SUPER, coarse_rank,
+                                                      fused_span)
     from caf_cookoff_tpu.ops.peak import merge_peaks
 
     window = (jnp.concatenate([tail_re, ch_re]),
@@ -228,9 +226,8 @@ def _stein_stream_lattice_step_jit(ws1, ws2, lmat, tail_re, tail_im,
     h_ext = jnp.stack([jnp.pad(window[0], (0, max(0, need - win_len))),
                        jnp.pad(window[1], (0, max(0, need - win_len)))]
                       )[None, :, :need]
-    vals, idxs, vals2, idxs2 = fused_stein_rank(
+    vals, idxs, vals2, idxs2 = coarse_rank(
         ws1, ws2, lmat, h_ext, num_blocks, group, chunk_len,
-        interpret=interpret,
         num_valid=jnp.reshape(jnp.asarray(valid_len, jnp.int32), (1,)),
         want_top2=True, sep=exclude_lag)
     k = vals.shape[0]
@@ -291,7 +288,7 @@ def _stein_lattice_rescore_jit(n_re, n_im, bws, offs, freqs, sample_rate,
       collapse this entry onto it (the NMS then dedups them into ONE
       peak, silently dropping a real emitter closer than the carry
       length).  One cell of slack covers any flat-top ranking
-      ambiguity in the kernel's coarse argmax; anything farther is by
+      ambiguity in the coarse argmax; anything farther is by
       definition a different detection.
     """
     from caf_cookoff_tpu.models.filterbank import _surface_rows_split
@@ -316,20 +313,19 @@ class StreamingCAF:
     ...     chunk_peak = s.process(chunk)     # this chunk's local peak
     >>> freq, lag, value = s.best()           # global running peak
 
-    ``backend='stein'`` selects the fused-kernel per-chunk path (one
-    Pallas program per chunk instead of K inverse FFTs); per-chunk
+    ``backend='stein'`` selects the segmented per-chunk path (one
+    stage-A dot and one synthesis matmul per chunk instead of K inverse
+    FFTs); per-chunk
     local peaks report the coarse (bin-ranked) frequency, and
     :meth:`best` re-scores the carried best window exactly.
 
     Multi-emitter caveat (``backend='stein*'`` with ``num_peaks > 1``):
-    the fused kernel carries TWO separated lag candidates per doppler
+    the coarse stage carries TWO separated lag candidates per doppler
     bin per chunk, exact for same-bin emitter pairs more than
-    ``2*exclude_lag`` apart — a same-bin pair within
-    ``(exclude_lag, 2*exclude_lag]`` can silently lose the weaker
-    emitter to a tile-boundary skirt, and three-plus same-bin emitters
-    in ONE chunk window exceed the two slots.  For those regimes use
-    the default XLA backend, whose streaming lattice is exact (see
-    :func:`caf_cookoff_tpu.ops.pallas_stein.fused_stein_rank`).
+    ``exclude_lag`` apart; three-plus same-bin emitters in ONE chunk
+    window exceed the two slots.  For that regime use the default
+    filterbank backend, whose streaming lattice is exact (see
+    :func:`caf_cookoff_tpu.models.batched_stein.coarse_rank`).
     """
 
     def __init__(self, needle, freqs_hz, sample_rate, *,
@@ -341,11 +337,10 @@ class StreamingCAF:
         backend = backend or default_backend()
         self._stein = backend.startswith("stein")
         self._num_peaks = int(num_peaks)
-        if backend.startswith(("stein", "pallas")):
-            # Engine-level names: the streaming transforms themselves
-            # run on a split-FFT tier; 'stein*' flips the fused mode.
-            backend = ("matmul" if jax.default_backend() != "cpu"
-                       else "xla")
+        if backend.startswith("stein"):
+            # Engine-level name: the streaming transforms themselves
+            # run on a split-FFT tier; 'stein*' flips the segmented mode.
+            backend = default_backend()
         self.backend = backend
         n_re, n_im = splitfft.split_array(needle)
         self.needle_len = int(n_re.shape[-1])
@@ -375,11 +370,9 @@ class StreamingCAF:
         rdt = n_re.dtype
         if self._stein:
             from caf_cookoff_tpu.models.batched_stein import (
+                SUPER,
                 _needle_operator,
                 _pow2_block_len,
-            )
-            from caf_cookoff_tpu.ops.pallas_stein import (
-                SUPER,
                 stein_synthesis_weights,
             )
 
@@ -392,13 +385,12 @@ class StreamingCAF:
             self._n_planes = (jnp.asarray(np_re), jnp.asarray(np_im))
             self._num_blocks = self._needle_pad // self._block_len
             # One-time eager build (host-sized: (1, 2B, 2*D)); the
-            # second return rides to the kernel's ``sup`` argument.
+            # second return rides to coarse_rank's ``sup`` argument.
             self._lmat, self._group = _needle_operator(
                 np_re[None], np_im[None], self._block_len)
             self._ws = stein_synthesis_weights(
                 jnp.asarray(self._freqs), self.sample_rate,
                 self._num_blocks, self._block_len)
-            self._interpret = jax.default_backend() == "cpu"
             if self._num_peaks > 1:
                 p = self._num_peaks
                 self._bws = jnp.zeros((p, 2, self._needle_pad + _RESCORE_PAD),
@@ -419,7 +411,7 @@ class StreamingCAF:
         self._tail = (jnp.zeros(halo, rdt), jnp.zeros(halo, rdt))
         # Noise-floor state: measured (sum, count) accumulators for the
         # XLA paths; sample-energy sums for the stein path's model
-        # floor (the fused kernel emits per-bin maxima, not cells).
+        # floor (the coarse stage emits per-bin maxima, not cells).
         self._fsum = jnp.zeros((), rdt)
         self._fcnt = jnp.zeros((), rdt)
         self._h2_sum = 0.0
@@ -454,8 +446,8 @@ class StreamingCAF:
         (sum, count) over every valid cell (the surface never
         materializes).  Stein path: the exponential-cell model
         ``Σ|n|² · mean|h|²`` (a noise-only xcor cell is a
-        complex-Gaussian sum with that second moment) — the fused
-        kernel reduces each bin to its (max, argmax), so there are no
+        complex-Gaussian sum with that second moment) — the coarse
+        stage reduces each bin to its (max, argmax), so there are no
         cells to average.  Returns 0.0 before any chunk.
         """
         if self._stein:
@@ -520,7 +512,7 @@ class StreamingCAF:
                 self._best.lag_idx, self._bws, self._bw_starts,
                 self._base_lag, valid, self._num_blocks, self._group,
                 fixed, self._needle_pad, self.needle_len - 1,
-                self._interpret, self._num_peaks, *self._exclude)
+                self._num_peaks, *self._exclude)
             self._bws = bws
             self._bw_starts = starts
         elif self._stein:
@@ -532,7 +524,7 @@ class StreamingCAF:
                 self._best.lag_idx, self._bw[0], self._bw[1],
                 self._bw_start, self._base_lag, valid,
                 self._num_blocks, self._group, fixed,
-                self._needle_pad, self.needle_len - 1, self._interpret)
+                self._needle_pad, self.needle_len - 1)
             self._bw = bw
             self._bw_start = bw_start
         elif self._num_peaks > 1:

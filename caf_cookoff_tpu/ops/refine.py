@@ -10,7 +10,7 @@ construction.  This module refines a coarse engine peak to
   ``z[t] = conj(needle[t]) * haystack[lag + t]`` is (for a true copy) a
   complex exponential at exactly the frequency offset.  Its CAF row
   ``|Z(f)|^2 = |sum_t z[t] e^{-j2pi f t / fs}|^2`` is evaluated on a
-  fine frequency grid by direct DFT (one small MXU matmul per
+  fine frequency grid by direct DFT (one small matmul per
   iteration), and the grid re-centers and shrinks geometrically — three
   33-point iterations take a 0.5 Hz coarse step to ~1e-4 Hz, far past
   the 0.01 Hz target, at O(iters * points * N) flops.

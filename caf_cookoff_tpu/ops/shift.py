@@ -53,8 +53,8 @@ def phasor_bank(freqs_hz: jax.Array, num_samples: int, sample_rate,
 
     This is the dense form of the doppler fan-out: the reference's seven
     parallel strategies (rayon/goroutines/multiprocessing, SURVEY §2.3) all
-    reduce to multiplying the needle by one row of this matrix. On TPU the
-    whole bank is one broadcasted VPU expression.
+    reduce to multiplying the needle by one row of this matrix. On the
+    device the whole bank is one broadcasted elementwise expression.
     """
     freqs = jnp.asarray(freqs_hz, dtype=real_dtype)
     phase = _phase_ramp(freqs, num_samples, sample_rate, real_dtype)

@@ -1,10 +1,10 @@
-"""Multi-chip parallelism: meshes, collectives, sharded CAF engines.
+"""Multi-device parallelism: meshes, collectives, sharded CAF engines.
 
-The TPU-native replacement for the reference's thread/process fan-out
+The device-mesh replacement for the reference's thread/process fan-out
 (rayon / goroutines / multiprocessing — SURVEY §2.3) and its in-process
 channel "communication backend" (SURVEY §2.4): named mesh axes
 (``pair``, ``doppler``, ``time``), ``shard_map`` engines, ``ppermute``
-halo exchange and pmax/pmin peak reduction over ICI.
+halo exchange and pmax/pmin peak reduction over the device links.
 """
 
 from caf_cookoff_tpu.parallel.collectives import (

@@ -2,7 +2,7 @@
 
 The reference gathers per-bin rows through in-process channels and scans
 them on one thread (`caf_rust/src/caf/mod.rs:31-42` over rows received at
-:367-372; `caf_go/caf.go:154-158` drains a buffered chan).  The TPU-native
+:367-372; `caf_go/caf.go:154-158` drains a buffered chan).  The mesh
 equivalent reduces ``(value, freq_idx, lag_idx)`` triples across mesh axes
 with XLA collectives — no host gather, no surface materialization on one
 chip.
@@ -70,7 +70,7 @@ def global_peaks(local: CafPeak, axis_names: _AxisNames, num_peaks: int,
     # original per-axis x per-field fold issued 3 x len(names) gathers
     # — at ms-scale per-call transport latency, the collective term of
     # a 2-axis mesh step was 6x one gather's latency for 24 B of
-    # payload; measured in docs/scaling_pinned.json config5_dt rows.)
+    # payload.)
     value = jax.lax.all_gather(value, names, tiled=True)
     idx = jnp.stack([local.freq_idx.astype(jnp.int32),
                      local.lag_idx.astype(jnp.int32)])

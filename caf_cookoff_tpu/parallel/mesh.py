@@ -2,7 +2,7 @@
 
 The reference's only parallel resource is a pool of CPU cores fed by
 rayon / goroutines / multiprocessing (SURVEY §2.3).  Here the resource is
-a named `jax.sharding.Mesh` of TPU chips with three first-class axes:
+a named `jax.sharding.Mesh` of devices with three first-class axes:
 
 * ``pair``    — independent (needle, haystack) pairs: the data-parallel
   axis (the reference processes one pair at a time,
@@ -13,8 +13,9 @@ a named `jax.sharding.Mesh` of TPU chips with three first-class axes:
   segmented correlation; absent in the reference, which truncates the
   haystack, ``caf_go/main.go:20``).
 
-Collectives ride ICI when the mesh is built over one slice; multi-host
-meshes put the ``pair`` axis (no halo traffic) over DCN.
+Every GPU of a host reaches every other over NVLink at the same rate, so
+the mesh follows the algorithm alone; multi-host meshes put the ``pair``
+axis (no halo traffic) across hosts.
 """
 
 from __future__ import annotations
@@ -62,8 +63,7 @@ def make_mesh(pair: int = 1, doppler: int = 1, time: int = 1,
               devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
     """Build a ``(pair, doppler, time)`` mesh over ``devices``.
 
-    Axis sizes must multiply to the device count.  Keep ``time`` (halo
-    ppermute traffic) innermost so neighbor exchange stays on ICI.
+    Axis sizes must multiply to the device count.
     """
     devices = list(devices if devices is not None else jax.devices())
     want = pair * doppler * time

@@ -3,10 +3,10 @@
 The reference has no multi-node story at all (SURVEY §2.4: in-process
 channels only).  Here, scaling past one host is the standard JAX
 recipe: every host calls :func:`initialize_cluster`, builds the same
-global mesh over ``jax.devices()`` (all chips of all hosts), and feeds
-the sharded engines — XLA routes doppler/pair-axis collectives over ICI
-within a slice and DCN across hosts.  Keep the ``time`` axis (halo
-ppermute traffic) within a slice.
+global mesh over ``jax.devices()`` (all devices of all hosts), and
+feeds the sharded engines — XLA routes the collectives over NVLink
+within a host and the network across hosts.  Keep the ``time`` axis
+(halo ppermute traffic) within a host.
 
 Typical pod-scale run (BASELINE config 5):
 
@@ -30,9 +30,9 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
                        process_id: Optional[int] = None) -> None:
     """``jax.distributed.initialize`` with env autodetection.
 
-    On managed TPU pods every argument autodetects; pass explicit values
-    for manual clusters.  Safe to call once per process, before any JAX
-    computation.
+    On managed clusters the arguments may autodetect; elsewhere pass
+    ``coordinator_address``, ``num_processes`` and ``process_id``.
+    Safe to call once per process, before any JAX computation.
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -83,7 +83,7 @@ def put_global(x, mesh, spec):
 
 
 def multihost_caf_peak(needle, haystack, freqs_hz, sample_rate, mesh,
-                       *, backend: str = "matmul"):
+                       *, backend: Optional[str] = None):
     """(freq_hz, lag, value) with doppler bins sharded across HOSTS.
 
     The multi-controller twin of
@@ -96,7 +96,7 @@ def multihost_caf_peak(needle, haystack, freqs_hz, sample_rate, mesh,
     import numpy as np
     from jax.sharding import PartitionSpec as P
 
-    from caf_cookoff_tpu.config import xcor_length
+    from caf_cookoff_tpu.config import default_backend, xcor_length
     from caf_cookoff_tpu.parallel.mesh import AXIS_DOPPLER
     from caf_cookoff_tpu.parallel.sharded import (
         _sharded_peak_jit,
@@ -104,6 +104,7 @@ def multihost_caf_peak(needle, haystack, freqs_hz, sample_rate, mesh,
         pad_axis_to,
     )
 
+    backend = backend or default_backend()
     n_re, n_im = _split_host(needle)
     h_re, h_im = _split_host(haystack)
     freqs_p = pad_axis_to(np.asarray(freqs_hz, dtype=n_re.dtype),

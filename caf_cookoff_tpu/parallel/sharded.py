@@ -1,20 +1,20 @@
-"""Multi-chip CAF engines: ``shard_map`` over a named device mesh.
+"""Multi-device CAF engines: ``shard_map`` over a named device mesh.
 
-The TPU replacement for the reference's seven CPU fan-out strategies
+The mesh replacement for the reference's seven CPU fan-out strategies
 (SURVEY §2.3): instead of rayon work-stealing (``caf_rust/src/caf/
 mod.rs:185``), 400 goroutines (``caf_go/caf.go:143-160``) or a pickling
 process pool (``caf_python/caf.py:63-70``), the doppler/pair/time axes of
-the problem are laid out over mesh axes and XLA inserts ICI collectives:
+the problem are laid out over mesh axes and XLA inserts collectives:
 
 * ``doppler``  — frequency bins sharded; peak reduced via pmax/pmin
   (:mod:`caf_cookoff_tpu.parallel.collectives`);
 * ``pair``     — independent signal pairs, purely data parallel;
 * ``time``     — long-haystack lag blocks with ``ppermute`` halo
   exchange of the ``N-1`` boundary samples (overlap-save, the
-  ring-attention-style neighbor pattern over ICI).
+  ring-attention-style neighbor pattern).
 
-All device math is split-complex (re, im real planes — TPU runtimes have
-no complex support); complex dtypes appear only at the host boundary,
+All device math is split-complex (re, im real planes); complex dtypes
+appear only at the host boundary,
 where inputs are split before entering the jitted programs.  Inputs stay
 host-side (numpy) until jit places them onto the mesh devices — eager
 placement would pin them to the default device, which may not be in the
@@ -70,7 +70,7 @@ def _right_halo(chunk: jax.Array, halo: int, axis_name: str) -> jax.Array:
     """First ``halo`` samples of the right neighbor's chunk (zeros at edge).
 
     The overlap-save neighbor exchange: device ``i`` receives from
-    ``i+1`` over ICI via ``ppermute``; the last device, having no right
+    ``i+1`` via ``ppermute``; the last device, having no right
     neighbor, receives zeros (``ppermute``'s defined fill), which matches
     the zero-padded haystack tail.
     """
@@ -219,7 +219,7 @@ def sharded_caf_peak(needle, haystack, freqs_hz, sample_rate, mesh: Mesh,
     """(freq_hz, lag_idx, value): doppler-sharded fused surface+peak.
 
     The surface never materializes anywhere — each chip reduces its bin
-    block and the triples meet in a pmax/pmin lattice over ICI.
+    block and the triples meet in a pmax/pmin lattice.
     """
     backend = backend or default_backend()
     n_re, n_im = _split_host(needle)
@@ -403,24 +403,19 @@ def batched_caf_peak(needles, haystacks, freqs_hz, sample_rate, mesh: Mesh,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "xcor_len", "block_len", "backend",
-                     "interpret"))
+    static_argnames=("mesh", "xcor_len", "block_len", "backend"))
 def _sharded_batched_stein_jit(ns_re, ns_im, hs_re, hs_im, freqs,
                                sample_rate, mesh, xcor_len, block_len,
-                               backend, interpret):
+                               backend):
     from caf_cookoff_tpu.models.batched_stein import _batched_stein_core
 
     def body(ns_re, ns_im, hs_re, hs_im, freqs):
         return _batched_stein_core(ns_re, ns_im, hs_re, hs_im, freqs,
                                    sample_rate, xcor_len, block_len,
-                                   backend, True, interpret)
+                                   backend, True)
 
     # check_vma=False: the body is pure data parallelism (no
-    # collectives), and the fused kernel's pallas_call out_shape
-    # cannot carry a ``vma`` annotation without breaking its
-    # single-chip (non-shard_map) callers — JAX's vma check rejects
-    # the un-annotated ShapeDtypeStruct at trace time on real TPU
-    # (interpret mode on CPU meshes never hits that path).
+    # collectives), so there is no varying-axis state to check.
     return shard_map(
         body, mesh=mesh,
         in_specs=(P(AXIS_PAIR), P(AXIS_PAIR), P(AXIS_PAIR), P(AXIS_PAIR),
@@ -433,11 +428,11 @@ def _sharded_batched_stein_jit(ns_re, ns_im, hs_re, hs_im, freqs,
 def sharded_batched_stein_peak(needles, haystacks, freqs_hz, sample_rate,
                                mesh: Mesh, *, block_len: int = 64,
                                backend: Optional[str] = None):
-    """Per-pair peaks with the FUSED batch engine sharded over ``pair``.
+    """Per-pair peaks with the segmented batch engine sharded over ``pair``.
 
-    The fastest single-chip engine (ops/pallas_stein.fused_stein_rank,
-    0.0163 ms/surface at batch 64 on one v5e) scaled out: each chip
-    runs the fused kernel on its local pair block — pure data
+    The single-device batch engine (:func:`caf_cookoff_tpu.models.
+    batched_stein.batched_stein_peak`) scaled out: each device runs
+    the segmented engine on its local pair block — pure data
     parallelism, zero collectives, so scaling efficiency is bounded
     only by batch divisibility.  Doppler bins replicate (the synthesis
     weights are O(K*B), trivial).
@@ -468,12 +463,9 @@ def sharded_batched_stein_peak(needles, haystacks, freqs_hz, sample_rate,
     if pad:
         ns_re = np.pad(ns_re, ((0, 0), (0, pad)))
         ns_im = np.pad(ns_im, ((0, 0), (0, pad)))
-    # The XLA-twin path on CPU meshes (incl. virtual-device dryruns in
-    # a TPU-default process): what runs must match where the MESH is.
-    interpret = mesh.devices.flat[0].platform == "cpu"
     peak = _sharded_batched_stein_jit(
         ns_re, ns_im, hs_re, hs_im, freqs, float(sample_rate), mesh,
-        xcor_length(n), d, backend, interpret)
+        xcor_length(n), d, backend)
     return (freqs[np.asarray(peak.freq_idx)], np.asarray(peak.lag_idx),
             np.asarray(peak.value))
 
@@ -482,12 +474,12 @@ def sharded_batched_stein_peak(needles, haystacks, freqs_hz, sample_rate,
     jax.jit,
     static_argnames=("mesh", "xcor_len", "block_len", "backend",
                      "num_peaks", "exclude_freq", "exclude_lag", "guard",
-                     "rescore_win", "interpret"))
+                     "rescore_win"))
 def _sharded_batched_stein_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs,
                                      sample_rate, mesh, xcor_len,
                                      block_len, backend, num_peaks,
                                      exclude_freq, exclude_lag, guard,
-                                     rescore_win, interpret):
+                                     rescore_win):
     from caf_cookoff_tpu.models.batched_stein import (
         _batched_stein_peaks_core,
     )
@@ -496,10 +488,10 @@ def _sharded_batched_stein_peaks_jit(ns_re, ns_im, hs_re, hs_im, freqs,
         return _batched_stein_peaks_core(
             ns_re, ns_im, hs_re, hs_im, freqs, sample_rate, xcor_len,
             block_len, backend, num_peaks, exclude_freq, exclude_lag,
-            guard, rescore_win, interpret)
+            guard, rescore_win)
 
     # check_vma=False for the same reason as _sharded_batched_stein_jit
-    # (pure data parallelism; the pallas_call out_shape carries no vma).
+    # (pure data parallelism).
     return shard_map(
         body, mesh=mesh,
         in_specs=(P(AXIS_PAIR), P(AXIS_PAIR), P(AXIS_PAIR), P(AXIS_PAIR),
@@ -516,12 +508,12 @@ def sharded_batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
                                 exclude_lag: Optional[int] = None,
                                 backend: Optional[str] = None,
                                 min_snr_db=None, with_snr: bool = False):
-    """Top-``num_peaks`` emitters PER PAIR with the FUSED batch engine
+    """Top-``num_peaks`` emitters PER PAIR with the segmented batch engine
     sharded over ``pair`` — the multi-emitter variant of
     :func:`sharded_batched_stein_peak` (config 4/5's lattice semantics
-    at fused-kernel speed on the mesh).
+    through the segmented engine on the mesh).
 
-    Pure data parallelism (each chip runs the fused kernel + per-entry
+    Pure data parallelism (each device runs the coarse stage + per-entry
     exact re-score on its pair block; zero collectives).  Returns
     ``(freqs (B, P), lags (B, P), values (B, P)[, snr_db])``, lags
     CIRCULAR like the single-peak engine.  ``min_snr_db`` thresholds
@@ -559,11 +551,10 @@ def sharded_batched_stein_peaks(needles, haystacks, freqs_hz, sample_rate,
     exclude_lag = auto[1] if exclude_lag is None else int(exclude_lag)
     # Circular path: pass the period m, not n (see batched_stein_peaks).
     guard, rescore_win = _rescore_guards(n, auto[1], xcor_length(n))
-    interpret = mesh.devices.flat[0].platform == "cpu"
     pk = _sharded_batched_stein_peaks_jit(
         ns_re, ns_im, hs_re, hs_im, freqs, float(sample_rate), mesh,
         xcor_length(n), d, backend, int(num_peaks), exclude_freq,
-        exclude_lag, guard, rescore_win, interpret)
+        exclude_lag, guard, rescore_win)
     if min_snr_db is None and not with_snr:
         return (freqs[np.asarray(pk.freq_idx)], np.asarray(pk.lag_idx),
                 np.asarray(pk.value))
@@ -811,7 +802,7 @@ def batched_overlap_save_peaks(needles, haystacks, freqs_hz, sample_rate,
                                num_lags: Optional[int] = None, *,
                                exclude_freq: Optional[int] = None,
                                exclude_lag: Optional[int] = None,
-                               backend: str = "matmul",
+                               backend: Optional[str] = None,
                                min_snr_db=None, with_snr: bool = False):
     """Top-``num_peaks`` emitters PER PAIR on the three-axis mesh.
 
@@ -831,6 +822,7 @@ def batched_overlap_save_peaks(needles, haystacks, freqs_hz, sample_rate,
     )
     from caf_cookoff_tpu.ops.peak import resolve_exclusions
 
+    backend = backend or default_backend()
     needles = np.asarray(needles)
     haystacks = np.asarray(haystacks)
     if needles.ndim != 2 or haystacks.ndim != 2 \
@@ -880,13 +872,14 @@ def batched_overlap_save_peaks(needles, haystacks, freqs_hz, sample_rate,
 def batched_overlap_save_peak(needles, haystacks, freqs_hz, sample_rate,
                               mesh: Mesh,
                               num_lags: Optional[int] = None, *,
-                              backend: str = "matmul"):
+                              backend: Optional[str] = None):
     """Per-pair (freqs (B,), lags (B,), values (B,)) for long captures
     sharded over ALL THREE mesh axes — BASELINE config 5's pattern
     (256 pairs x 4096 bins x 262144 lags over N hosts).
 
     See :func:`estimate_hbm_per_chip` for the per-chip memory model.
     """
+    backend = backend or default_backend()
     needles = np.asarray(needles)
     haystacks = np.asarray(haystacks)
     if needles.ndim != 2 or haystacks.ndim != 2 \
@@ -939,16 +932,11 @@ def estimate_hbm_per_chip(num_pairs: int, num_bins: int, needle_len: int,
     to check a config fits before launching (BASELINE config 5:
     256 pairs x 4096 bins x 262144 lags).
 
-    Validated against the chip (round 4, ``docs/hbm_validate.py`` →
-    ``docs/hbm_validate.json``): the model is a safe UPPER BOUND.
-    XLA's buffer assignment for the compiled engine matches the input
-    terms exactly (haystack + needles = ``argument_size`` within 1%)
-    but assigns 1.2–1.4 MB of temp regardless of shape — it fuses the
-    shifted-spectra bank into the block scan instead of materializing
-    the full (B, K, M) array — so measured/model was 0.13–0.52 over a
-    16x shape sweep.  Conservative is the correct direction for a
-    fits-per-chip gate; treat ``total_gb`` as "guaranteed to fit if
-    this fits", not as a prediction of live bytes.
+    ``docs/hbm_validate.py`` compares the model with XLA's buffer
+    assignment for the compiled engine on the GPU (not measured yet).
+    The model is meant as an UPPER bound: treat ``total_gb`` as
+    "guaranteed to fit if this fits", not as a prediction of live
+    bytes.
     """
     from caf_cookoff_tpu.config import xcor_length
 
@@ -973,7 +961,7 @@ def estimate_hbm_per_chip(num_pairs: int, num_bins: int, needle_len: int,
 def sharded_overlap_save_peak(needle, haystack, freqs_hz, sample_rate,
                               mesh: Mesh,
                               num_lags: Optional[int] = None, *,
-                              backend: str = "matmul"
+                              backend: Optional[str] = None
                               ) -> Tuple[float, int, float]:
     """(freq_hz, lag, value) for a long haystack sharded over ``time``.
 
@@ -1017,7 +1005,7 @@ def sharded_overlap_save_peaks(needle, haystack, freqs_hz, sample_rate,
                                num_lags: Optional[int] = None, *,
                                exclude_freq: Optional[int] = None,
                                exclude_lag: Optional[int] = None,
-                               backend: str = "matmul",
+                               backend: Optional[str] = None,
                                min_snr_db=None, with_snr: bool = False):
     """Top-``num_peaks`` emitters of a time-sharded long capture.
 
@@ -1079,7 +1067,7 @@ def sharded_overlap_save_peaks(needle, haystack, freqs_hz, sample_rate,
     static_argnames=("mesh", "xcor_len", "block_len", "backend",
                      "windows", "total_lags", "needle_len", "num_bins",
                      "num_peaks", "exclude_freq", "exclude_lag",
-                     "guard", "rescore_win", "banded", "interpret"))
+                     "guard", "rescore_win", "banded"))
 def _sharded_batched_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im,
                                         freqs_pad, centers, rel,
                                         sample_rate, mesh, xcor_len,
@@ -1089,10 +1077,10 @@ def _sharded_batched_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im,
                                         num_peaks: int,
                                         exclude_freq: int,
                                         exclude_lag: int, guard: int,
-                                        rescore_win: int, banded: bool,
-                                        interpret: bool):
-    """Config 5's multi-emitter composition at FUSED speed: per-pair
-    top-``num_peaks`` lattices through the windowed fused engine
+                                        rescore_win: int, banded: bool):
+    """Config 5's multi-emitter composition through the segmented
+    engine: per-pair top-``num_peaks`` lattices through the windowed
+    engine
     (plain or banded), pairs sharded over the ``pair`` mesh axis —
     pure data parallelism, zero collectives."""
     from caf_cookoff_tpu.models.batched_stein import (
@@ -1106,14 +1094,13 @@ def _sharded_batched_stein_os_peaks_jit(ns_re, ns_im, hs_re, hs_im,
                 ns_re, ns_im, hs_re, hs_im, freqs_pad, centers, rel,
                 sample_rate, xcor_len, block_len, backend, windows,
                 total_lags, needle_len, num_bins, num_peaks,
-                exclude_freq, exclude_lag, guard, rescore_win,
-                interpret)
+                exclude_freq, exclude_lag, guard, rescore_win)
         # (num_bins unused here — plain grids have no pad rows.)
         return _batched_stein_os_peaks_jit.__wrapped__(
             ns_re, ns_im, hs_re, hs_im, freqs_pad, sample_rate,
             xcor_len, block_len, backend, windows, total_lags,
             needle_len, num_peaks, exclude_freq, exclude_lag, guard,
-            rescore_win, interpret)
+            rescore_win)
 
     # check_vma=False for the same reason as _sharded_batched_stein_jit.
     return shard_map(
@@ -1135,7 +1122,7 @@ def sharded_batched_stein_os_peaks(needles, haystacks, freqs_hz,
                                    backend: Optional[str] = None,
                                    min_snr_db=None,
                                    with_snr: bool = False):
-    """Top-``num_peaks`` emitters PER PAIR of long captures, FUSED
+    """Top-``num_peaks`` emitters PER PAIR of long captures, segmented
     engine, pairs sharded over the mesh — BASELINE config 5's
     "streaming multi-emitter at pod scale" workload without the XLA
     lattice fallback (the round-4 gap this round closes).
@@ -1193,13 +1180,11 @@ def sharded_batched_stein_os_peaks(needles, haystacks, freqs_hz,
     exclude_freq = auto[0] if exclude_freq is None else int(exclude_freq)
     exclude_lag = auto[1] if exclude_lag is None else int(exclude_lag)
     guard, rescore_win = _rescore_guards(n, auto[1], haystacks.shape[-1])
-    interpret = mesh.devices.flat[0].platform == "cpu"
     pk = _sharded_batched_stein_os_peaks_jit(
         ns_re, ns_im, hs_re, hs_im, freqs_pad, np.asarray(centers),
         np.asarray(rel), float(sample_rate), mesh, m, d, backend,
         windows, total_lags, n, len(freqs), int(num_peaks),
-        exclude_freq, exclude_lag, guard, rescore_win, use_banded,
-        interpret)
+        exclude_freq, exclude_lag, guard, rescore_win, use_banded)
     if min_snr_db is None and not with_snr:
         return (freqs_pad[np.asarray(pk.freq_idx)],
                 np.asarray(pk.lag_idx), np.asarray(pk.value))
@@ -1212,16 +1197,15 @@ def sharded_batched_stein_os_peaks(needles, haystacks, freqs_hz,
     jax.jit,
     static_argnames=("mesh", "xcor_len", "block_len", "backend",
                      "windows_local", "total_lags", "needle_len",
-                     "num_bins", "interpret"))
+                     "num_bins"))
 def _sharded_stein_os_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
                           rel, sample_rate, mesh, xcor_len, block_len,
                           backend, windows_local: int, total_lags: int,
-                          needle_len: int, num_bins: int,
-                          interpret: bool):
+                          needle_len: int, num_bins: int):
     """Windowed fused OS engine with the WINDOW axis over ``time``.
 
     Each shard runs its ``windows_local`` consecutive overlap-save
-    windows as fused-kernel programs against the replicated capture
+    windows as coarse-stage programs against the replicated capture
     (windows are independent given their guard-extended slices, so the
     only collective is one (T, K) all_gather of per-bin coarse
     (rowmax, rowlag) — gather order equals global window order, so the
@@ -1231,16 +1215,11 @@ def _sharded_stein_os_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
     plain grids pass ``centers=[0]``, ``rel=freqs``.
     """
     from caf_cookoff_tpu.models.batched_stein import (
-        _coarse_rank_xla,
         _needle_operator,
         _os_topk_refine,
         _shift_to_centers,
-    )
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        SUPER,
-        fused_span,
-        fused_stein_rank,
         stein_synthesis_weights,
+        windowed_coarse_rank,
     )
 
     n = needle_len
@@ -1248,6 +1227,7 @@ def _sharded_stein_os_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
     s = centers.shape[0]
     kb = rel.shape[0]
     k_pad = freqs_pad.shape[0]
+    t_windows = mesh.shape[AXIS_TIME] * windows_local
 
     def body(n_re, n_im, h_re, h_im):
         t_idx = jax.lax.axis_index(AXIS_TIME)
@@ -1256,41 +1236,15 @@ def _sharded_stein_os_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
                                    sample_rate)
         b = sr.shape[-1] // block_len
         lmat, group = _needle_operator(sr, si, block_len)
-        span = fused_span(b, group, v)
-        win_len = span + SUPER - 1
-        # Pad so the LAST GLOBAL shard's final window slice is fully in
-        # bounds: dynamic_slice CLAMPS an out-of-range start, which
-        # would silently shift that shard's windows and misreport its
-        # lags (caught by the round-5 lattice dryrun).
-        t_total = mesh.shape[AXIS_TIME]
-        need = (t_total * windows_local - 1) * v + win_len
-        hp_re = jnp.pad(h_re, (0, max(0, need - h_re.shape[-1])))
-        hp_im = jnp.pad(h_im, (0, max(0, need - h_im.shape[-1])))
-        slices = [
-            jnp.stack([
-                jax.lax.dynamic_slice(
-                    hp_re, ((w0 + w) * v,), (win_len,)),
-                jax.lax.dynamic_slice(
-                    hp_im, ((w0 + w) * v,), (win_len,))], axis=0)
-            for w in range(windows_local)]
-        h_ext = jnp.stack(slices, axis=0)       # (w_loc, 2, win_len)
         ws1, ws2 = stein_synthesis_weights(rel, sample_rate, b,
                                            block_len)
-        per_w = jnp.clip(
-            total_lags - (w0 + jnp.arange(windows_local)) * v, 0, v)
-        num_valid = jnp.tile(per_w, s).astype(jnp.int32)
-        if interpret:
-            lmat_rep = jnp.repeat(lmat, windows_local, axis=0)
-            h_rep = jnp.tile(h_ext, (s, 1, 1))
-            vals, idxs = _coarse_rank_xla(ws1, ws2, lmat_rep, h_rep, b,
-                                          group, v,
-                                          num_valid=num_valid)
-        else:
-            vals, idxs = fused_stein_rank(ws1, ws2, lmat, h_ext, b,
-                                          group, v,
-                                          windows=windows_local,
-                                          share_h=s,
-                                          num_valid=num_valid)
+        # Every shard's capture is padded for the LAST global window, so
+        # no window slice starts out of range (dynamic_slice would clamp
+        # it and silently shift that shard's lags).
+        vals, idxs = windowed_coarse_rank(
+            ws1, ws2, lmat, h_re[None], h_im[None], b, group, v,
+            windows_local, total_lags, first_window=w0,
+            global_windows=t_windows, share_h=s)
         vals = vals.reshape(kb, s, windows_local)
         glob = (idxs.reshape(kb, s, windows_local)
                 + ((w0 + jnp.arange(windows_local)) * v)[None, None, :])
@@ -1316,7 +1270,7 @@ def _sharded_stein_os_jit(n_re, n_im, h_re, h_im, freqs_pad, centers,
             total_lags, n, num_valid_bins=num_bins)
         return CafPeak(pk.value[0], pk.freq_idx[0], pk.lag_idx[0])
 
-    # check_vma=False: pallas_call out_shapes carry no vma, and the
+    # check_vma=False: the
     # all_gather + identical replicated reduction/refine is replicated
     # by construction (see _os_sharded_peaks_jit).
     return shard_map(
@@ -1332,7 +1286,7 @@ def sharded_stein_os_peak(needle, haystack, freqs_hz, sample_rate,
                           block_len: int = 64,
                           backend: Optional[str] = None
                           ) -> Tuple[float, int, float]:
-    """(freq_hz, lag, value): the FUSED windowed long-capture engine
+    """(freq_hz, lag, value): the segmented windowed long-capture engine
     (``models/batched_stein.batched_stein_os_peak``) with its window
     axis sharded over ``time`` — the fastest config-3 engine on the
     mesh.
@@ -1373,11 +1327,10 @@ def sharded_stein_os_peak(needle, haystack, freqs_hz, sample_rate,
     t_shards = mesh.shape[AXIS_TIME]
     windows = -(-total_lags // m)
     windows_local = -(-windows // t_shards)
-    interpret = mesh.devices.flat[0].platform == "cpu"
     peak = _sharded_stein_os_jit(
         n_re, n_im, h_re, h_im, freqs_pad, np.asarray(centers),
         np.asarray(rel), float(sample_rate), mesh, m, d, backend,
-        windows_local, total_lags, n, len(freqs), interpret)
+        windows_local, total_lags, n, len(freqs))
     return (float(freqs_pad[int(peak.freq_idx)]), int(peak.lag_idx),
             float(peak.value))
 
@@ -1387,7 +1340,7 @@ def sharded_stein_os_peak(needle, haystack, freqs_hz, sample_rate,
     static_argnames=("mesh", "xcor_len", "block_len", "backend",
                      "windows_local", "total_lags", "needle_len",
                      "num_bins", "num_peaks", "exclude_freq",
-                     "exclude_lag", "guard", "rescore_win", "interpret"))
+                     "exclude_lag", "guard", "rescore_win"))
 def _sharded_stein_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad,
                                 centers, rel, sample_rate, mesh,
                                 xcor_len, block_len, backend,
@@ -1395,7 +1348,7 @@ def _sharded_stein_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad,
                                 needle_len: int, num_bins: int,
                                 num_peaks: int, exclude_freq: int,
                                 exclude_lag: int, guard: int,
-                                rescore_win: int, interpret: bool):
+                                rescore_win: int):
     """Fused multi-emitter lattice with the WINDOW axis over ``time``.
 
     Each shard runs its windows through the kernel's top-2 epilogue and
@@ -1409,17 +1362,12 @@ def _sharded_stein_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad,
     to f32 reassociation tolerance.
     """
     from caf_cookoff_tpu.models.batched_stein import (
-        _coarse_rank_xla,
         _lattice_from_bin_candidates,
         _needle_operator,
         _rescore_entries_windowed,
         _shift_to_centers,
-    )
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        SUPER,
-        fused_span,
-        fused_stein_rank,
         stein_synthesis_weights,
+        windowed_coarse_rank,
     )
     from caf_cookoff_tpu.ops.peak import merge_peaks
 
@@ -1428,6 +1376,7 @@ def _sharded_stein_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad,
     s = centers.shape[0]
     kb = rel.shape[0]
     k_pad = freqs_pad.shape[0]
+    t_windows = mesh.shape[AXIS_TIME] * windows_local
 
     def body(n_re, n_im, h_re, h_im):
         t_idx = jax.lax.axis_index(AXIS_TIME)
@@ -1436,40 +1385,14 @@ def _sharded_stein_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad,
                                    sample_rate)
         b = sr.shape[-1] // block_len
         lmat, group = _needle_operator(sr, si, block_len)
-        span = fused_span(b, group, v)
-        win_len = span + SUPER - 1
-        # Pad so the LAST GLOBAL shard's final window slice is fully in
-        # bounds: dynamic_slice CLAMPS an out-of-range start, which
-        # would silently shift that shard's windows and misreport its
-        # lags (caught by the round-5 lattice dryrun).
-        t_total = mesh.shape[AXIS_TIME]
-        need = (t_total * windows_local - 1) * v + win_len
-        hp_re = jnp.pad(h_re, (0, max(0, need - h_re.shape[-1])))
-        hp_im = jnp.pad(h_im, (0, max(0, need - h_im.shape[-1])))
-        slices = [
-            jnp.stack([
-                jax.lax.dynamic_slice(hp_re, ((w0 + w) * v,),
-                                      (win_len,)),
-                jax.lax.dynamic_slice(hp_im, ((w0 + w) * v,),
-                                      (win_len,))], axis=0)
-            for w in range(windows_local)]
-        h_ext = jnp.stack(slices, axis=0)
         ws1, ws2 = stein_synthesis_weights(rel, sample_rate, b,
                                            block_len)
-        per_w = jnp.clip(
-            total_lags - (w0 + jnp.arange(windows_local)) * v, 0, v)
-        num_valid = jnp.tile(per_w, s).astype(jnp.int32)
-        if interpret:
-            lmat_rep = jnp.repeat(lmat, windows_local, axis=0)
-            h_rep = jnp.tile(h_ext, (s, 1, 1))
-            v1, i1, v2, i2 = _coarse_rank_xla(
-                ws1, ws2, lmat_rep, h_rep, b, group, v,
-                num_valid=num_valid, want_top2=True, sep=exclude_lag)
-        else:
-            v1, i1, v2, i2 = fused_stein_rank(
-                ws1, ws2, lmat, h_ext, b, group, v,
-                windows=windows_local, share_h=s, num_valid=num_valid,
-                want_top2=True, sep=exclude_lag)
+        # Padded for the LAST global window (see _sharded_stein_os_jit).
+        v1, i1, v2, i2 = windowed_coarse_rank(
+            ws1, ws2, lmat, h_re[None], h_im[None], b, group, v,
+            windows_local, total_lags, first_window=w0,
+            global_windows=t_windows, share_h=s, want_top2=True,
+            sep=exclude_lag)
         woff_g = (w0 + jnp.arange(windows_local, dtype=jnp.int32)) * v
         vals_j = jnp.stack([v1, v2], axis=-1).reshape(
             kb, s, windows_local, 2)
@@ -1508,7 +1431,7 @@ def _sharded_stein_os_peaks_jit(n_re, n_im, h_re, h_im, freqs_pad,
         return merge_peaks(CafPeak(vals_e, bins_e, lags_e), num_peaks,
                            exclude_freq, exclude_lag)
 
-    # check_vma=False: pallas out_shapes + gather-then-identical-merge
+    # check_vma=False: gather-then-identical-merge
     # replication (see _os_sharded_peaks_jit).
     return shard_map(
         body, mesh=mesh,
@@ -1526,7 +1449,7 @@ def sharded_stein_os_peaks(needle, haystack, freqs_hz, sample_rate,
                            exclude_lag: Optional[int] = None,
                            backend: Optional[str] = None,
                            min_snr_db=None, with_snr: bool = False):
-    """Top-``num_peaks`` emitters of one long capture, FUSED windowed
+    """Top-``num_peaks`` emitters of one long capture, segmented windowed
     engine, windows sharded over ``time`` — the multi-emitter variant
     of :func:`sharded_stein_os_peak` (one (T, ...) coarse gather, the
     re-score replicated).  Returns ``(freqs (P,), lags (P,),
@@ -1570,12 +1493,11 @@ def sharded_stein_os_peaks(needle, haystack, freqs_hz, sample_rate,
     exclude_freq = auto[0] if exclude_freq is None else int(exclude_freq)
     exclude_lag = auto[1] if exclude_lag is None else int(exclude_lag)
     guard, rescore_win = _rescore_guards(n, auto[1], haystack.shape[-1])
-    interpret = mesh.devices.flat[0].platform == "cpu"
     pk = _sharded_stein_os_peaks_jit(
         n_re, n_im, h_re, h_im, freqs_pad, np.asarray(centers),
         np.asarray(rel), float(sample_rate), mesh, m, d, backend,
         windows_local, total_lags, n, len(freqs), int(num_peaks),
-        exclude_freq, exclude_lag, guard, rescore_win, interpret)
+        exclude_freq, exclude_lag, guard, rescore_win)
     if min_snr_db is None and not with_snr:
         return (freqs_pad[np.asarray(pk.freq_idx)],
                 np.asarray(pk.lag_idx), np.asarray(pk.value))
@@ -1589,17 +1511,16 @@ def sharded_stein_os_peaks(needle, haystack, freqs_hz, sample_rate,
     jax.jit,
     static_argnames=("mesh", "xcor_len", "block_len", "backend",
                      "windows_local", "total_lags", "needle_len",
-                     "num_bins", "rate_chunk", "guard", "interpret"))
+                     "num_bins", "rate_chunk", "guard"))
 def _sharded_stein_rate_os_jit(n_re, n_im, h_re, h_im, freqs_pad,
                                centers, rel, rates, sample_rate, mesh,
                                xcor_len, block_len, backend,
                                windows_local: int, total_lags: int,
                                needle_len: int, num_bins: int,
-                               rate_chunk: int, guard: int,
-                               interpret: bool):
+                               rate_chunk: int, guard: int):
     """SEGMENTED rate search with the window axis over ``time``.
 
-    Each shard runs its overlap-save windows through the fused kernel
+    Each shard runs its overlap-save windows through the coarse stage
     with (rate × relative-bin) synthesis rows (stage A shared by every
     trial rate — the round-5 de-serialization) against the replicated
     capture; per-(rate, bin) coarse maxima gather over ``time`` in
@@ -1608,17 +1529,12 @@ def _sharded_stein_rate_os_jit(n_re, n_im, h_re, h_im, freqs_pad,
     mesh.
     """
     from caf_cookoff_tpu.models.batched_stein import (
-        _coarse_rank_xla,
         _needle_operator,
         _shift_to_centers,
+        stein_rate_synthesis_weights,
+        windowed_coarse_rank,
     )
     from caf_cookoff_tpu.models.rate import _rate_coarse_closer
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        SUPER,
-        fused_span,
-        fused_stein_rank,
-        stein_rate_synthesis_weights,
-    )
 
     n = needle_len
     v = xcor_len
@@ -1626,6 +1542,7 @@ def _sharded_stein_rate_os_jit(n_re, n_im, h_re, h_im, freqs_pad,
     kb = rel.shape[0]
     k_pad = freqs_pad.shape[0]
     num_rates = rates.shape[0]
+    t_windows = mesh.shape[AXIS_TIME] * windows_local
 
     def body(n_re, n_im, h_re, h_im):
         t_idx = jax.lax.axis_index(AXIS_TIME)
@@ -1634,40 +1551,18 @@ def _sharded_stein_rate_os_jit(n_re, n_im, h_re, h_im, freqs_pad,
                                    sample_rate)
         b = sr.shape[-1] // block_len
         lmat, group = _needle_operator(sr, si, block_len)
-        span = fused_span(b, group, v)
-        win_len = span + SUPER - 1
-        t_total = mesh.shape[AXIS_TIME]
-        need = (t_total * windows_local - 1) * v + win_len
-        hp_re = jnp.pad(h_re, (0, max(0, need - h_re.shape[-1])))
-        hp_im = jnp.pad(h_im, (0, max(0, need - h_im.shape[-1])))
-        slices = [
-            jnp.stack([
-                jax.lax.dynamic_slice(hp_re, ((w0 + w) * v,),
-                                      (win_len,)),
-                jax.lax.dynamic_slice(hp_im, ((w0 + w) * v,),
-                                      (win_len,))], axis=0)
-            for w in range(windows_local)]
-        h_ext = jnp.stack(slices, axis=0)
-        per_w = jnp.clip(
-            total_lags - (w0 + jnp.arange(windows_local)) * v, 0, v)
-        num_valid = jnp.tile(per_w, s).astype(jnp.int32)
         woff_g = (w0 + jnp.arange(windows_local, dtype=jnp.int32)) * v
         rowmax_parts, rowlag_parts = [], []
         for c0 in range(0, num_rates, rate_chunk):
             rc = min(rate_chunk, num_rates - c0)
             ws1, ws2 = stein_rate_synthesis_weights(
                 rel, rates[c0:c0 + rc], sample_rate, b, block_len)
-            if interpret:
-                lmat_rep = jnp.repeat(lmat, windows_local, axis=0)
-                h_rep = jnp.tile(h_ext, (s, 1, 1))
-                vals, idxs = _coarse_rank_xla(
-                    ws1, ws2, lmat_rep, h_rep, b, group, v,
-                    num_valid=num_valid)
-            else:
-                vals, idxs = fused_stein_rank(
-                    ws1, ws2, lmat, h_ext, b, group, v,
-                    windows=windows_local, share_h=s,
-                    num_valid=num_valid)
+            # Padded for the LAST global window (see
+            # _sharded_stein_os_jit).
+            vals, idxs = windowed_coarse_rank(
+                ws1, ws2, lmat, h_re[None], h_im[None], b, group, v,
+                windows_local, total_lags, first_window=w0,
+                global_windows=t_windows, share_h=s)
             vals = vals.reshape(rc, kb, s, windows_local)
             glob = (idxs.reshape(rc, kb, s, windows_local)
                     + woff_g[None, None, None, :])
@@ -1694,7 +1589,7 @@ def _sharded_stein_rate_os_jit(n_re, n_im, h_re, h_im, freqs_pad,
             rowlag, sample_rate, v, n, total_lags, guard, num_bins,
             backend)
 
-    # check_vma=False: pallas out_shapes + gather-then-identical-closer
+    # check_vma=False: gather-then-identical-closer
     # replication (see _os_sharded_peaks_jit).
     return shard_map(
         body, mesh=mesh,
@@ -1739,12 +1634,11 @@ def sharded_stein_rate_os_peak(needle, haystack, freqs_hz,
     t_shards = mesh.shape[AXIS_TIME]
     windows = -(-total_lags // m)
     windows_local = -(-windows // t_shards)
-    interpret = mesh.devices.flat[0].platform == "cpu"
     r_idx, value, f_idx, lag = _sharded_stein_rate_os_jit(
         n_re, n_im, h_re, h_im, np.asarray(freqs_pad),
         np.asarray(centers), np.asarray(rel), jnp.asarray(rates),
         float(sample_rate), mesh, m, d, backend, windows_local,
-        total_lags, n, len(freqs), rate_chunk, guard, interpret)
+        total_lags, n, len(freqs), rate_chunk, guard)
     return (float(rates[int(r_idx)]), float(freqs_pad[int(f_idx)]),
             int(lag), float(value))
 
@@ -1966,7 +1860,7 @@ def sharded_rate_overlap_save_peak(needle, haystack, freqs_hz,
                                    rates_hz_per_s, sample_rate,
                                    mesh: Mesh,
                                    num_lags: Optional[int] = None, *,
-                                   backend: str = "matmul"
+                                   backend: Optional[str] = None
                                    ) -> Tuple[float, float, int, float]:
     """(rate_hz_per_s, freq_hz, lag, value): the joint (rate, doppler,
     lag) search of :func:`caf_cookoff_tpu.models.rate.
@@ -2012,7 +1906,7 @@ def sharded_rate_overlap_save_peaks(needle, haystack, freqs_hz,
                                     num_lags: Optional[int] = None, *,
                                     exclude_freq: Optional[int] = None,
                                     exclude_lag: Optional[int] = None,
-                                    backend: str = "matmul",
+                                    backend: Optional[str] = None,
                                     min_snr_db=None,
                                     with_snr: bool = False):
     """Top-``num_peaks`` accelerating emitters of a time/doppler-sharded

@@ -2,9 +2,9 @@
 
 The native layer mirrors the reference's compiled I/O codecs
 (``caf_rust/src/utils.rs:10-63``, ``caf_go/caf.go:31-93``) but targets
-the TPU engine's needs: files and in-memory complex buffers are
+the engine's needs: files and in-memory complex buffers are
 deinterleaved straight into planar split-complex (re, im) float32
-planes — the exact representation ``device_put`` ships to the chip —
+planes — the exact representation ``device_put`` ships to the device —
 with mmap'd reads and multi-threaded conversion for large captures.
 
 Everything degrades gracefully: if ``libcafio.so`` is absent (or the

@@ -1,10 +1,10 @@
-// libcafio — native signal I/O for the TPU CAF engine.
+// libcafio — native signal I/O for the CAF engine.
 //
 // The reference's native layer is FFTW plus hand-rolled byte codecs
 // (caf_rust/src/utils.rs:10-63, caf_go/caf.go:31-93: interleaved
 // little-endian f32 I/Q files read into language-native complex
-// vectors).  The TPU engine's native analog has one extra job: the
-// device runtime takes *planar* split-complex (separate re/im planes,
+// vectors).  The engine's native analog has one extra job: the
+// device engines take *planar* split-complex (separate re/im planes,
 // see caf_cookoff_tpu/ops/splitfft.py), so the hot path here is a
 // single-pass mmap + deinterleave straight from the page cache into the
 // planes that get device_put — no intermediate complex array, no numpy

@@ -1,5 +1,5 @@
-"""Batched Stein engine (config-2 path): conv stage A + fused Pallas
-synthesis/rank + batched top-k re-score.
+"""Batched Stein engine (config-2 path): direct-dot stage A + the
+coarse synthesis/rank stage + batched top-k re-score.
 
 Contract: per-pair answers bit-match the single-pair Stein engine
 (which itself matches the golden filterbank) — the cross-strategy
@@ -126,73 +126,145 @@ def test_batched_os_golden_fixture(chirp):
     assert (float(fr[0]), int(lg[0])) == (69.25, 202)
 
 
-def _kernel_and_twin(needles, hays, freqs, m, d):
-    """Run the fused kernel (interpret mode) AND its pure-XLA twin on
-    the same (P, n) complex pairs; returns numpy (kv, ki, xv, xi) —
-    (K, P) values/lag-indices from each.  The twin is fed bf16-cast
-    inputs so values compare at the kernel's precision."""
+def _coarse_reference(needles, hays, freqs, num_lags, bound=None):
+    """Plain complex128 filterbank per program: ``|sum_s h[s+tau]
+    conj(n[s]) e^{-j w_k s}|^2`` for tau < num_lags (np.correlate
+    conjugates its second operand), masked past ``bound``.  Returns
+    (K, P) per-bin (max, argmax) and the (P, K, num_lags) rows."""
+    t = np.arange(needles.shape[-1])
+    rows = np.empty((len(needles), len(freqs), num_lags))
+    for i, (nd, h) in enumerate(zip(needles.astype(np.complex128),
+                                    hays.astype(np.complex128))):
+        for k, f in enumerate(np.asarray(freqs, np.float64)):
+            shifted = nd * np.exp(2j * np.pi * f * t / FS)
+            rows[i, k] = np.abs(np.correlate(h, shifted, "valid")
+                                [:num_lags]) ** 2
+        if bound is not None:
+            rows[i, :, bound[i]:] = -1.0
+    return rows.max(-1).T, rows.argmax(-1).T, rows
+
+
+def _run_coarse(needles, hay_slices, freqs, d, num_lags, **kw):
+    """coarse_rank on complex needles (one per operator) and complex
+    haystack slices (one per h_ext row)."""
     import jax.numpy as jnp
 
     from caf_cookoff_tpu.models.batched_stein import (
-        _coarse_rank_xla,
-        _haystack_extension,
+        SUPER,
         _needle_operator,
-    )
-    from caf_cookoff_tpu.ops.pallas_stein import (
+        coarse_rank,
         fused_span,
-        fused_stein_rank,
         stein_synthesis_weights,
     )
     from caf_cookoff_tpu.ops.splitfft import split_array
 
     ns_re, ns_im = map(jnp.asarray, split_array(needles))
-    hs_re, hs_im = map(jnp.asarray, split_array(hays))
-    freqs = jnp.asarray(freqs)
-    n = ns_re.shape[-1]
-    b = n // d
-    lmat, group = _needle_operator(ns_re, ns_im, d)
-    span = fused_span(b, group, m)
-    h_ext = _haystack_extension(hs_re, hs_im, m, span)
-    ws1, ws2 = stein_synthesis_weights(freqs, FS, b, d)
-    kv, ki = fused_stein_rank(ws1, ws2, lmat, h_ext, b, group, m,
-                              interpret=True)
-    bf = jnp.bfloat16
-    xv, xi = _coarse_rank_xla(ws1.astype(bf).astype(jnp.float32),
-                              ws2.astype(bf).astype(jnp.float32),
-                              lmat.astype(bf).astype(jnp.float32),
-                              h_ext.astype(bf).astype(jnp.float32),
-                              b, group, m)
-    return (np.asarray(kv), np.asarray(ki),
-            np.asarray(xv), np.asarray(xi))
+    b = ns_re.shape[-1] // d
+    lmat, sup = _needle_operator(ns_re, ns_im, d)
+    span = fused_span(b, sup, num_lags)
+    need = span + SUPER - 1
+    h = np.zeros((len(hay_slices), need), np.complex64)
+    for i, sl in enumerate(hay_slices):
+        h[i, :min(len(sl), need)] = sl[:need]
+    h_ext = jnp.asarray(np.stack([h.real, h.imag], axis=1))
+    ws1, ws2 = stein_synthesis_weights(jnp.asarray(freqs), FS, b, d)
+    out = coarse_rank(ws1, ws2, lmat, h_ext, b, sup, num_lags, **kw)
+    return [np.asarray(o) for o in out], h
 
 
-def test_fused_kernel_matches_xla_twin():
-    """The Pallas kernel (interpret mode, small shape) against its
-    pure-XLA twin: identical ranking and lag indices, near-identical
-    values (both fed bf16 inputs)."""
-    rng = np.random.default_rng(6)
-    p, n, d, k, m = 2, 512, 64, 16, 1024
-    needles = (rng.standard_normal((p, n))
-               + 1j * rng.standard_normal((p, n))).astype(np.complex64)
-    hays = (rng.standard_normal((p, n))
-            + 1j * rng.standard_normal((p, n))).astype(np.complex64)
-    freqs = np.linspace(-100, 100, k).astype(np.float32)
-    kv, ki, xv, xi = _kernel_and_twin(needles, hays, freqs, m, d)
-    np.testing.assert_array_equal(ki, xi)
-    np.testing.assert_allclose(kv, xv, rtol=2e-2)
+def _plant(n_needle, length, emitters, rng):
+    """(needle, capture): needle copies at (lag, freq_hz, amp) over
+    low-level noise."""
+    t = np.arange(n_needle)
+    needle = (rng.standard_normal(n_needle)
+              + 1j * rng.standard_normal(n_needle)).astype(np.complex64)
+    hay = (1e-3 * (rng.standard_normal(length)
+                   + 1j * rng.standard_normal(length))).astype(np.complex64)
+    for lag, f_hz, amp in emitters:
+        hay[lag:lag + n_needle] += amp * (needle * np.exp(
+            2j * np.pi * f_hz * t / FS))[: length - lag]
+    return needle, hay
+
+
+# Bins within +-40 Hz of 0 at D=64: the block-constant phase error
+# (w*D/2 <= 0.17 rad) moves a row's value by at most ~1% of the coherent
+# peak's power, so coarse maxima sit within 2% OF THE SURFACE PEAK of
+# the c128 filterbank's, and every per-bin argmax lands on the planted
+# emitter.
+_COARSE_RTOL = 2e-2
+
+
+def _assert_close_to_peak(got, want):
+    scale = np.max(want)
+    np.testing.assert_allclose(got / scale, want / scale,
+                               atol=_COARSE_RTOL)
+
+
+@pytest.mark.parametrize("mode", ["plain", "num_valid", "want_top2",
+                                  "share_h", "windows"])
+def test_coarse_rank_matches_c128_filterbank(mode):
+    """coarse_rank in each of its modes against the plain complex128
+    filterbank of every program's (needle, haystack slice)."""
+    rng = np.random.default_rng(21)
+    n, d, m = 512, 64, 1024
+    freqs = np.linspace(-40, 40, 9).astype(np.float32)
+    kw, bound = {}, None
+    if mode in ("plain", "want_top2", "num_valid"):
+        emit = {"plain": [[(100, 10.0, 1.0)], [(700, -20.0, 1.0)]],
+                "want_top2": [[(100, 0.0, 1.0), (400, 0.0, 0.6)],
+                              [(650, 10.0, 1.0), (90, 10.0, 0.7)]],
+                "num_valid": [[(300, 0.0, 1.0), (900, 0.0, 3.0)],
+                              [(200, 20.0, 1.0), (800, 20.0, 3.0)]]
+                }[mode]
+        pairs = [_plant(n, n + m + 64, e, rng) for e in emit]
+        needles = np.stack([p[0] for p in pairs])
+        hays = [p[1] for p in pairs]
+        prog_needles, prog_hays = needles, hays
+        if mode == "want_top2":
+            kw = {"want_top2": True, "sep": 50}
+        if mode == "num_valid":
+            # The stronger decoy past the bound must not shadow the
+            # in-range emitter of the same bin.
+            bound = np.array([600, 500], np.int32)
+            kw = {"num_valid": bound}
+    elif mode == "share_h":
+        needle, hay = _plant(n, n + m + 64, [(333, 5.0, 1.0)], rng)
+        shifts = np.exp(2j * np.pi * np.array([[0.0], [12.0]])
+                        * np.arange(n) / FS)
+        prog_needles = (needle[None] * shifts).astype(np.complex64)
+        needles, hays = prog_needles, [hay]
+        prog_hays = [hay, hay]
+        kw = {"share_h": 2}
+    else:                                   # windows
+        needle, hay = _plant(n, 2 * m + n + 64,
+                             [(250, 0.0, 1.0), (m + 480, 30.0, 1.0)], rng)
+        needles = needle[None]
+        hays = [hay[w * m:] for w in range(2)]
+        prog_needles = np.stack([needle, needle])
+        prog_hays = hays
+        kw = {"windows": 2}
+    out, h = _run_coarse(needles, hays, freqs, d, m, **kw)
+    prog_h = h if mode != "share_h" else np.concatenate([h, h])
+    del prog_hays
+    ref_v, ref_i, rows = _coarse_reference(prog_needles, prog_h, freqs, m,
+                                           bound)
+    _assert_close_to_peak(out[0], ref_v)
+    np.testing.assert_array_equal(out[1], ref_i)
+    if mode == "want_top2":
+        lag = np.arange(m)
+        masked = np.where(np.abs(lag[None, None] - ref_i.T[..., None])
+                          <= 50, -1.0, rows)
+        _assert_close_to_peak(out[2], masked.max(-1).T)
+        np.testing.assert_array_equal(out[3], masked.argmax(-1).T)
 
 
 def test_fused_kernel_tie_break_min_lag():
     """Exact cross-tile ties resolve to the MINIMUM lag.
 
     Two bit-identical copies of the needle placed at lags in different
-    512-lag tiles produce bit-for-bit equal per-block correlations (the
-    same sample values feed the same bf16 dots), so every (bin, lag)
-    value ties between the two lags.  The kernel's epilogue accumulates
-    a running elementwise max with a strict ``>`` across tiles and then
-    takes the min encoded lag among the maxima — the contract (shared
-    with find_peak_2d and the XLA twin's argmax) is that the earlier
-    lag wins."""
+    512-lag tiles produce bit-for-bit equal per-block correlations, so
+    every (bin, lag) value ties between the two lags; the contract
+    (shared with find_peak_2d) is that the earlier lag wins."""
     rng = np.random.default_rng(11)
     n, d, k, m = 512, 64, 17, 4096
     lag_a, lag_b = 100, 6 * 512 + 100          # tiles 0 and 6
@@ -202,48 +274,43 @@ def test_fused_kernel_tie_break_min_lag():
     hay[lag_a:lag_a + n] = needle
     hay[lag_b:lag_b + n] = needle
     freqs = np.linspace(-100, 100, k).astype(np.float32)
-    _, ki, _, xi = _kernel_and_twin(needle[None], hay[None], freqs, m, d)
+    (_, ki), _ = _run_coarse(needle[None], [hay], freqs, d, m)
     zero_bin = k // 2                          # linspace midpoint = 0 Hz
     assert ki[zero_bin, 0] == lag_a
-    # And the XLA twin (argmax = first max) agrees bin-for-bin.
-    np.testing.assert_array_equal(ki, xi)
 
 
 def test_fused_kernel_single_tile():
-    """num_lags <= FUSED_TILE runs the epilogue's init-only path (one
-    lag tile, no cross-tile accumulation) — kernel must still match the
-    XLA twin bin-for-bin."""
+    """num_lags <= FUSED_TILE (one lag tile) against the c128
+    filterbank, bin for bin."""
     rng = np.random.default_rng(12)
-    p, n, d, k, m = 2, 256, 64, 9, 512
-    needles = (rng.standard_normal((p, n))
-               + 1j * rng.standard_normal((p, n))).astype(np.complex64)
-    hays = (rng.standard_normal((p, n))
-            + 1j * rng.standard_normal((p, n))).astype(np.complex64)
-    freqs = np.linspace(-50, 50, k).astype(np.float32)
-    kv, ki, xv, xi = _kernel_and_twin(needles, hays, freqs, m, d)
-    np.testing.assert_array_equal(ki, xi)
-    np.testing.assert_allclose(kv, xv, rtol=2e-2)
+    n, d, m = 256, 64, 512
+    freqs = np.linspace(-40, 40, 9).astype(np.float32)
+    pairs = [_plant(n, n + m + 64, [(lag, f, 1.0)], rng)
+             for lag, f in ((40, 10.0), (300, -30.0))]
+    needles = np.stack([p[0] for p in pairs])
+    (kv, ki), h = _run_coarse(needles, [p[1] for p in pairs], freqs, d, m)
+    ref_v, ref_i, _ = _coarse_reference(needles, h, freqs, m)
+    np.testing.assert_array_equal(ki, ref_i)
+    _assert_close_to_peak(kv, ref_v)
 
 
 def test_fused_kernel_static_tail_mask():
-    """num_lags below FUSED_TILE (N=128 -> xcor length 256) seeds the
-    -1.0 mask sentinels into the (kp, tile) accumulator at the first
-    (only) tile via the STATIC tail-mask branch; the final reduction
-    must exclude them.  Kernel vs XLA twin, bin-for-bin."""
-    from caf_cookoff_tpu.ops.pallas_stein import FUSED_TILE
+    """num_lags below FUSED_TILE (N=128 -> xcor length 256): lags past
+    num_lags are masked out of every bin's (max, argmax), even where a
+    stronger correlation sits there."""
+    from caf_cookoff_tpu.models.batched_stein import FUSED_TILE
 
     rng = np.random.default_rng(13)
-    p, n, d, k, m = 2, 128, 32, 9, 256
+    n, d, m = 128, 32, 256
     assert m < FUSED_TILE                   # the branch under test
-    needles = (rng.standard_normal((p, n))
-               + 1j * rng.standard_normal((p, n))).astype(np.complex64)
-    hays = (rng.standard_normal((p, n))
-            + 1j * rng.standard_normal((p, n))).astype(np.complex64)
-    freqs = np.linspace(-50, 50, k).astype(np.float32)
-    kv, ki, xv, xi = _kernel_and_twin(needles, hays, freqs, m, d)
-    assert int(np.max(ki)) < m              # no masked lane leaked
-    np.testing.assert_array_equal(ki, xi)
-    np.testing.assert_allclose(kv, xv, rtol=2e-2)
+    freqs = np.linspace(-40, 40, 9).astype(np.float32)
+    needle, hay = _plant(n, n + FUSED_TILE + 64,
+                         [(60, 0.0, 1.0), (400, 0.0, 3.0)], rng)
+    (kv, ki), h = _run_coarse(needle[None], [hay], freqs, d, m)
+    assert int(np.max(ki)) < m              # no masked lag leaked
+    ref_v, ref_i, _ = _coarse_reference(needle[None], h, freqs, m)
+    np.testing.assert_array_equal(ki, ref_i)
+    _assert_close_to_peak(kv, ref_v)
 
 
 def test_pow2_block_len():
@@ -423,72 +490,143 @@ def test_banded_os_fine_grid_matches_plain():
 
 
 def test_fused_kernel_composed_windows_bands_matches_twin():
-    """windows x share_h COMPOSED (banded long captures): the kernel's
-    program-order index maps — lmat per (pair, band), h_ext per
-    (pair, window), band-major — against the twin fed the explicitly
-    expanded operands, with a per-program lag bound."""
+    """windows x share_h COMPOSED (banded long captures): operators per
+    (pair, band), haystack slices per (pair, window), programs
+    band-major, with a per-program lag bound — against the c128
+    filterbank of every program."""
+    rng = np.random.default_rng(14)
+    p, s, w, n, d, v = 2, 2, 2, 512, 64, 1024
+    total_lags = w * v - 300                    # short final window
+    freqs = np.linspace(-30, 30, 7).astype(np.float32)
+    shifts = np.exp(2j * np.pi * np.array([[0.0], [9.0]])
+                    * np.arange(n) / FS)
+    needles, slices, prog_n, prog_h = [], [], [], []
+    for pair in range(p):
+        nd, hay = _plant(n, w * v + n + 64,
+                         [(150 + 40 * pair, 0.0, 1.0),
+                          (v + 200 + 30 * pair, 9.0, 1.0),
+                          # past the final window's bound, stronger
+                          (v + total_lags - v + 100, 9.0, 3.0)], rng)
+        band_n = (nd[None] * shifts).astype(np.complex64)
+        needles.extend(band_n)
+        win = [hay[i * v:] for i in range(w)]
+        slices.extend(win)
+        for j in range(s):
+            for i in range(w):
+                prog_n.append(band_n[j])
+                prog_h.append(i)
+    per_w = np.clip(total_lags - np.arange(w) * v, 0, v)
+    bound = np.tile(per_w, p * s).astype(np.int32)
+    (kv, ki), h = _run_coarse(np.stack(needles), slices, freqs, d, v,
+                              windows=w, share_h=s, num_valid=bound)
+    prog_hays = np.stack([h[(i // (s * w)) * w + prog_h[i]]
+                          for i in range(p * s * w)])
+    ref_v, ref_i, _ = _coarse_reference(np.stack(prog_n), prog_hays,
+                                        freqs, v, bound)
+    np.testing.assert_array_equal(ki, ref_i)
+    _assert_close_to_peak(kv, ref_v)
+
+
+def _windowed_case(windows, share_h=1, pairs=2, seed=15):
+    """Operands of windowed_coarse_rank: (ws1, ws2, lmat, hs_re, hs_im,
+    num_blocks, sup, v) for ``pairs`` captures of ``windows`` 512-lag
+    windows, one needle operator per (pair, band)."""
     import jax.numpy as jnp
 
     from caf_cookoff_tpu.models.batched_stein import (
-        _coarse_rank_xla,
         _needle_operator,
-        _os_window_extensions,
-    )
-    from caf_cookoff_tpu.ops.pallas_stein import (
-        fused_span,
-        fused_stein_rank,
         stein_synthesis_weights,
     )
-    from caf_cookoff_tpu.ops.splitfft import split_array
 
-    p, s, w, n, d, k = 2, 3, 2, 512, 64, 16
-    v = 1024                                    # lags per window
-    total_lags = w * v - 300                    # short final window
-    # Planted structure (bf16-rounding-proof): impulse needles at a
-    # distinct offset per (pair, band) and two spikes per (pair,
-    # window) — every program's peak lag is then unique and isolated,
-    # so kernel and twin must agree exactly; raw noise would flip
-    # near-tie argmaxes between the kernel's bf16 co buffer and the
-    # twin's f32 one.
-    needles = np.zeros((p * s, n), np.complex64)
-    for j in range(p * s):
-        needles[j, 7 * j] = 1.0
-    hays = np.zeros((p, total_lags + n), np.complex64)
-    for pair in range(p):
-        for win in range(w):
-            base = win * v
-            hays[pair, base + 101 + 13 * pair + 29 * win] = 2.0
-            # In the short final window this spike sits PAST the lag
-            # bound and is stronger — only the in-kernel num_valid
-            # mask keeps the in-range spike on top.
-            hays[pair, base + 903 + 17 * pair] = 3.0 if win else 1.0
-    ns_re, ns_im = map(jnp.asarray, split_array(needles))
-    hs_re, hs_im = map(jnp.asarray, split_array(hays))
-    freqs = jnp.asarray(np.linspace(-100, 100, k).astype(np.float32))
-    b = n // d
-    lmat, sup = _needle_operator(ns_re, ns_im, d)       # (P*S, 2B, 2D)
-    span = fused_span(b, sup, v)
-    h_ext = _os_window_extensions(hs_re, hs_im, v, w, span)  # (P*W, ...)
-    ws1, ws2 = stein_synthesis_weights(freqs, FS, b, d)
-    per_w = np.clip(total_lags - np.arange(w) * v, 0, v)
-    num_valid = jnp.asarray(np.tile(per_w, p * s), jnp.int32)
-    kv, ki = fused_stein_rank(ws1, ws2, lmat, h_ext, b, sup, v,
-                              interpret=True, windows=w, share_h=s,
-                              num_valid=num_valid)
-    # Twin: expand operands to one entry per program, band-major.
-    lmat_rep = jnp.repeat(lmat, w, axis=0)
-    l = h_ext.shape[-1]
-    h_rep = jnp.broadcast_to(
-        h_ext.reshape(p, 1, w, 2, l), (p, s, w, 2, l)
-    ).reshape(p * s * w, 2, l)
-    bf = jnp.bfloat16
-    xv, xi = _coarse_rank_xla(ws1.astype(bf).astype(jnp.float32),
-                              ws2.astype(bf).astype(jnp.float32),
-                              lmat_rep.astype(bf).astype(jnp.float32),
-                              h_rep.astype(bf).astype(jnp.float32),
-                              b, sup, v, num_valid=num_valid)
-    np.testing.assert_array_equal(np.asarray(ki), np.asarray(xi))
-    np.testing.assert_allclose(np.asarray(kv), np.asarray(xv), rtol=2e-2)
+    rng = np.random.default_rng(seed)
+    n, d, v = 256, 16, 512
+    caps, ops = [], []
+    for pair in range(pairs):
+        nd, hay = _plant(n, windows * v + n,
+                         [(100 + 700 * pair, 20.0, 1.0),
+                          (windows * v - 90, -35.0, 0.8)], rng)
+        caps.append(hay)
+        for band in range(share_h):
+            ops.append(nd * np.exp(2j * np.pi * 15.0 * band
+                                   * np.arange(n) / FS))
+    ops = np.stack(ops).astype(np.complex64)
+    lmat, sup = _needle_operator(jnp.asarray(ops.real),
+                                 jnp.asarray(ops.imag), d)
+    freqs = jnp.linspace(-60.0, 60.0, 25, dtype=jnp.float32)
+    ws1, ws2 = stein_synthesis_weights(freqs, FS, n // d, d)
+    caps = np.stack(caps)
+    return (ws1, ws2, lmat, jnp.asarray(caps.real), jnp.asarray(caps.imag),
+            n // d, sup, v)
+
+
+@pytest.mark.parametrize("mode", ["plain", "want_top2", "share_h",
+                                  "first_window"])
+def test_windowed_coarse_rank_groups_match_one_group(mode, monkeypatch):
+    """Windows run in bounded groups (a lax.map step each, the last
+    group padded) give the same per-(bin, program) answers as one group
+    holding every window: 1 and 2 windows per step against all 5,
+    with a lag bound that ends inside the final window."""
+    import caf_cookoff_tpu.models.batched_stein as bs
+
+    windows = 5
+    share_h = 2 if mode == "share_h" else 1
+    ws1, ws2, lmat, hr, hi, b, sup, v = _windowed_case(windows, share_h)
+    kw = {"share_h": share_h}
+    total = windows * v - 200
+    if mode == "want_top2":
+        kw.update(want_top2=True, sep=40)
+    if mode == "first_window":
+        # A mesh shard's view: windows 2..4 of a 5-window capture.
+        kw.update(first_window=2, global_windows=windows)
+        windows = 3
+    args = (ws1, ws2, lmat, hr, hi, b, sup, v, windows, total)
+
+    def grp(budget):
+        monkeypatch.setattr(bs, "WINDOW_GROUP_BYTES", budget)
+        return bs.window_group(2, share_h, ws1.shape[0], b, sup, v,
+                               windows)
+
+    assert grp(1 << 50) == windows
+    want = bs.windowed_coarse_rank(*args, **kw)
+    lo, two = 1, 1 << 40                    # least budget for 2 windows
+    while lo < two:
+        mid = (lo + two) // 2
+        lo, two = (lo, mid) if grp(mid) >= 2 else (mid + 1, two)
+    assert windows % 2                      # the last group pads
+    for budget, size in ((1, 1), (two, 2)):
+        assert grp(budget) == size
+        got = bs.windowed_coarse_rank(*args, **kw)
+        assert len(got) == len(want) == (4 if mode == "want_top2" else 2)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape == (ws1.shape[0],
+                                          2 * share_h * windows)
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                       rtol=1e-6)
+
+
+def test_windowed_coarse_rank_memory_bounded(monkeypatch):
+    """The compiled windowed coarse stage's temporary memory does not
+    grow with capture length once windows run in groups: 8x the
+    windows costs < 2x the temp bytes at one window per step, while
+    one group holding every window grows with them."""
+    import functools
+
+    import jax
+
+    import caf_cookoff_tpu.models.batched_stein as bs
+
+    def temp_bytes(windows, budget):
+        monkeypatch.setattr(bs, "WINDOW_GROUP_BYTES", budget)
+        ws1, ws2, lmat, hr, hi, b, sup, v = _windowed_case(windows,
+                                                           pairs=1)
+        fn = jax.jit(functools.partial(
+            bs.windowed_coarse_rank, num_blocks=b, sup=sup, v=v,
+            windows=windows, total_lags=windows * v - 7))
+        mem = fn.lower(ws1, ws2, lmat, hr, hi).compile().memory_analysis()
+        return mem.temp_size_in_bytes
+
+    assert temp_bytes(32, 1) < 2 * temp_bytes(4, 1)
+    assert temp_bytes(32, 1 << 50) > 4 * temp_bytes(4, 1 << 50)
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,10 @@ class TestCafConfig:
     def test_backend_validation(self):
         with pytest.raises(ValueError):
             CafConfig(backend="fftw")
-        for b in ("auto", "stein", "pallas-refine", "matmul-bf16"):
+        for b in ("auto", "stein", "matmul-bf16"):
             CafConfig(backend=b)
+        with pytest.raises(ValueError):
+            CafConfig(backend="pallas-refine")
 
     def test_precision_dtypes(self):
         assert CafConfig(precision="c64").complex_dtype == np.complex64
@@ -103,3 +105,75 @@ def test_input_validation_contracts():
     # as_grid passes valid grids through unchanged.
     g = as_grid([1.0, 2.0])
     assert g.dtype == np.float32 and g.tolist() == [1.0, 2.0]
+
+
+@pytest.mark.parametrize("platform,want", [("cpu", "xla"), ("gpu", "xla"),
+                                           ("metal", None)])
+def test_backend_for_platform(platform, want):
+    """Every platform the program runs on names its FFT backend; any
+    other platform is an error, not a silent default."""
+    from caf_cookoff_tpu.config import backend_for_platform
+
+    if want is None:
+        with pytest.raises(ValueError, match="no default FFT backend"):
+            backend_for_platform(platform)
+    else:
+        assert backend_for_platform(platform) == want
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_enable_compile_cache(env_set, monkeypatch, tmp_path):
+    """The cache follows JAX_COMPILATION_CACHE_DIR when set (and sets
+    nothing itself); otherwise it is the checkout's fixed .jax_cache."""
+    import pathlib
+
+    import jax
+
+    from caf_cookoff_tpu.config import enable_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        path = enable_compile_cache()
+        if env_set:
+            assert path == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            root = pathlib.Path(__file__).resolve().parents[1]
+            assert path == str(root / ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+            assert enable_compile_cache() == path     # fixed, not fresh
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_device_peaks_table():
+    """The H100 row carries the data-sheet peaks; an unlisted device
+    kind raises instead of defaulting."""
+    from caf_cookoff_tpu.utils.bench import device_peaks
+
+    h100 = device_peaks("NVIDIA H100 80GB HBM3")
+    assert (h100["bf16_flops"], h100["tf32_flops"], h100["fp32_flops"],
+            h100["hbm_bytes_per_s"]) == (989e12, 495e12, 67e12, 3.35e12)
+    with pytest.raises(ValueError, match="no published peaks"):
+        device_peaks("cpu")
+
+
+def test_mfu_uses_backend_tier_peak():
+    """Achieved TFLOP/s over the peak of the backend's precision tier."""
+    import types
+
+    from caf_cookoff_tpu.utils.bench import _mfu
+
+    dev = types.SimpleNamespace(device_kind="NVIDIA H100 80GB HBM3")
+    row = _mfu("matmul-bf16", 989e9, 1.0, dev)      # 989 TFLOP/s
+    assert row == {"tflops": 989.0, "peak": "bf16_flops",
+                   "peak_pct": 100.0}
+    assert _mfu("xla", 67e9, 1.0, dev)["peak"] == "fp32_flops"
+    assert _mfu("matmul", 67e9, 1.0, dev)["peak"] == "fp32_flops"
+    assert _mfu("matmul-high", 67e9, 1.0, dev)["peak"] == "tf32_flops"
+    with pytest.raises(ValueError):
+        _mfu("xla", 1.0, 1.0, types.SimpleNamespace(device_kind="cpu"))

@@ -1,7 +1,7 @@
 """Typed engine errors (round-2 verdict item 4).
 
 The engines' legitimate reroutes (doppler span past the segmented
-envelope, fused-kernel VMEM/shape limits) are named exceptions
+envelope, layout-contract shape limits) are named exceptions
 (:mod:`caf_cookoff_tpu.errors`); fallback sites catch exactly those, so
 an unrelated ``ValueError`` — a genuine bug — propagates instead of
 silently downgrading the engine.  The reference's posture is fail-loud
@@ -16,7 +16,6 @@ from caf_cookoff_tpu.errors import (
     EligibilityError,
     EngineError,
     SpanError,
-    VmemBudgetError,
 )
 
 FS = 48_000.0
@@ -25,7 +24,7 @@ FS = 48_000.0
 def test_error_taxonomy():
     """All engine errors are ValueErrors (stable user contract) and
     EngineErrors (the only legal reroute catch)."""
-    for cls in (SpanError, EligibilityError, VmemBudgetError):
+    for cls in (SpanError, EligibilityError):
         assert issubclass(cls, EngineError)
         assert issubclass(cls, ValueError)
 
@@ -38,28 +37,18 @@ def test_auto_block_len_raises_span_error():
         _auto_block_len(FS, freqs, 64)
 
 
-def test_fused_flag_ineligible_raises_eligibility_error():
-    from caf_cookoff_tpu.models.stein import stein_caf_peak
+def test_batch_engine_ineligible_length_raises_eligibility_error():
+    """A correlation length off the coarse stage's 512-lag tile is a
+    typed layout condition, not a bare ValueError."""
+    from caf_cookoff_tpu.models.batched_stein import batched_stein_peak
 
     rng = np.random.default_rng(0)
     n = 100  # xcor_length(100) = 256, not a 512 multiple
-    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
-        np.complex64)
+    x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
+         ).astype(np.complex64)
     freqs = np.arange(-10.0, 10.0, 1.0, dtype=np.float32)
-    with pytest.raises(EligibilityError):
-        stein_caf_peak(x, x, freqs, FS, fused=True)
-
-
-def test_vmem_budget_error_is_typed():
-    """The fused kernel's VMEM ceiling raises the typed budget error."""
-    from caf_cookoff_tpu.ops.pallas_stein import _vmem_demand
-
-    with pytest.raises(VmemBudgetError):
-        # Absurd shape: a ~1M-sample span at 64k padded bins cannot
-        # fit the co staircase + Hankel scratch in VMEM.
-        _vmem_demand(b2=128, span=1 << 20, sup=512, sr=64,
-                     m_pad=1 << 20, kp=65536, p=1, a_chunks=4,
-                     want_idxs=True)
+    with pytest.raises(EligibilityError, match="512"):
+        batched_stein_peak(x, x, freqs, FS)
 
 
 def _long_capture_pair():
@@ -105,14 +94,10 @@ def test_typed_error_reroutes_stein_os_to_scan(monkeypatch):
 
     needle, hay, freqs, f_true, lag = _long_capture_pair()
 
-    def budget(*a, **k):
-        raise VmemBudgetError("forced: shape past the chip's VMEM")
+    def ineligible(*a, **k):
+        raise EligibilityError("forced: shape outside the layout contract")
 
-    monkeypatch.setattr(bs, "batched_stein_os_peak", budget)
-    # On CPU the windowed branch needs forcing past the platform gate
-    # (patch the gate, not jax.default_backend, which the scan also
-    # consults for interpret-mode selection).
-    monkeypatch.setattr(stein_mod, "_use_windowed_engine", lambda sb: True)
+    monkeypatch.setattr(bs, "batched_stein_os_peak", ineligible)
     freq, got_lag, _ = stein_mod.stein_overlap_save_peak(
         needle, hay, freqs, FS)
     assert (freq, got_lag) == (f_true, lag)

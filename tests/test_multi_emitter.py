@@ -308,7 +308,7 @@ def test_streaming_stein_same_bin_tile_boundary_skirt():
     candidate, so the nearby stronger emitter inside the same carried
     window cannot collapse the weaker entry onto itself."""
     from caf_cookoff_tpu.models.streaming import StreamingCAF
-    from caf_cookoff_tpu.ops.pallas_stein import FUSED_TILE
+    from caf_cookoff_tpu.models.batched_stein import FUSED_TILE
 
     n, total = 1024, 32768
     t = np.arange(n)

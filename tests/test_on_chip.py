@@ -1,11 +1,12 @@
-"""Compiled on-chip golden tests: all 10 fixtures x real TPU backends.
+"""Compiled on-device golden tests: all 10 fixtures x every backend on
+the GPU, plus every engine family compiled at its real widths.
 
-Round 1's only on-TPU correctness evidence was bench.py's single
-chirp_0 assert; this lane is the full golden matrix compiled on the
-chip (matmul MXU-DFT, fused Pallas with refinement, Stein segmented),
-plus the Pallas-surface-vs-matmul numerical comparison.  Reference
-analog: ``cargo test`` exercising every strategy on the real FFT
-backends (``caf_rust/tests/test.rs``).
+Every test here is marked ``gpu`` and skips where JAX finds no GPU (the
+decision is made by a fixture, at run time).  ``python chip_smoke.py``
+runs this module on the card in its own process; the CPU suite covers
+the same engines at small shapes.  Reference analog: ``cargo test``
+exercising every strategy on the real FFT backends
+(``caf_rust/tests/test.rs``).
 """
 
 import numpy as np
@@ -13,6 +14,17 @@ import pytest
 
 from caf_cookoff_tpu.config import FreqGrid
 from caf_cookoff_tpu.models.filterbank import caf_peak, caf_surface
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _require_gpu():
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU (run: python chip_smoke.py)")
+
 
 FS = 48_000.0
 
@@ -30,7 +42,7 @@ GOLDEN = [
     (9, FreqGrid(-100.0, 100.0, 0.5), 61.5, 176),
 ]
 
-BACKENDS = ["matmul", "pallas-refine", "stein"]
+BACKENDS = ["xla", "matmul", "stein"]
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -43,24 +55,28 @@ def test_golden_on_chip(chirp, backend, idx, grid, want_freq, want_lag):
     assert lag == want_lag
 
 
-def test_pallas_surface_matches_matmul_on_chip(chirp):
-    """The compiled fused kernel's full surface vs the XLA matmul path
-    (same arithmetic family): peaks identical, values close."""
+def test_surface_tiers_match_on_chip(chirp):
+    """The matmul-DFT surface vs the cuFFT (xla) surface on the card:
+    peaks identical, values within 1e-5 of the surface peak.  On the
+    0.5 Hz grid chirp_0's truth (69.25 Hz) sits midway between two bins
+    whose values differ by ~7e-6 of the peak, so only two f32-grade
+    tiers agree on the argmax: this holds the exact 'matmul' tier to
+    HIGHEST precision (TF32 picks the neighbouring bin)."""
     needle, haystack, _ = chirp(0)
     freqs = FreqGrid(-100.0, 100.0, 0.5).frequencies(np.float32)
     want = np.asarray(caf_surface(needle, haystack, freqs, FS,
-                                  backend="matmul"))
+                                  backend="xla"))
     got = np.asarray(caf_surface(needle, haystack, freqs, FS,
-                                 backend="pallas"))
+                                 backend="matmul"))
     assert got.shape == want.shape
     assert np.unravel_index(got.argmax(), got.shape) == \
         np.unravel_index(want.argmax(), want.shape)
     scale = want.max()
-    np.testing.assert_allclose(got / scale, want / scale, atol=5e-3)
+    np.testing.assert_allclose(got / scale, want / scale, atol=1e-5)
 
 
 def test_batched_os_on_chip(chirp):
-    """The windowed long-capture fused engine compiled on chip: golden
+    """The windowed long-capture engine compiled on the card: golden
     full-capture search (no truncation)."""
     import pathlib
 
@@ -77,8 +93,8 @@ def test_batched_os_on_chip(chirp):
 
 
 def test_batched_stein_on_chip(chirp):
-    """The config-2 engine (grouped conv + batched Pallas kernel)
-    compiled on the chip: golden parity for a 4-pair batch."""
+    """The config-2 engine compiled on the card: golden parity for a
+    4-pair batch."""
     from caf_cookoff_tpu.models.batched_stein import batched_stein_peak
 
     freqs = FreqGrid(-100.0, 100.0, 0.25).frequencies(np.float32)
@@ -97,7 +113,7 @@ def test_batched_stein_on_chip(chirp):
 
 
 def test_streaming_stein_on_chip(chirp):
-    """Stein-mode streaming compiled on chip: chunked full-capture
+    """Stein-mode streaming compiled on the card: chunked full-capture
     golden search."""
     import pathlib
 
@@ -116,7 +132,7 @@ def test_streaming_stein_on_chip(chirp):
 
 
 def test_streaming_stein_same_bin_on_chip():
-    """The fused kernel's ``want_top2`` epilogue on real hardware: two
+    """The coarse stage's ``want_top2`` epilogue on the card: two
     emitters in one doppler bin at distinct lags inside one chunk
     window, both recovered by the stein stream's lattice."""
     from caf_cookoff_tpu.models.streaming import StreamingCAF
@@ -145,8 +161,8 @@ def test_streaming_stein_same_bin_on_chip():
 
 
 def test_banded_wide_span_on_chip():
-    """Banded Stein (16 bands as the kernel's batch axis) compiled on
-    chip: exact wide-span answer vs the matmul filterbank."""
+    """Banded Stein (bands as the coarse stage's batch axis) compiled
+    on the card: exact wide-span answer vs the matmul filterbank."""
     rng = np.random.default_rng(12)
     n = 4096
     needle = (rng.standard_normal(n)
@@ -166,11 +182,9 @@ def test_banded_wide_span_on_chip():
 
 def test_banded_windowed_os_on_chip():
     """The banded x windowed composition (config 3's shape, scaled)
-    compiled on chip: multiple bands AND multiple lag windows per pair,
-    with an uneven tail window exercising the per-program SMEM lag
-    bound (p_eff = bands x windows programs — the lane's other OS
-    tests stay unbanded or single-window, which is exactly how the
-    rank-1 SMEM block-shape lowering bug slipped past it)."""
+    compiled on the card: multiple bands AND multiple lag windows per
+    pair, with an uneven tail window exercising the per-program lag
+    bound (p_eff = bands x windows programs)."""
     from caf_cookoff_tpu.models.batched_stein import batched_stein_os_peak
     from caf_cookoff_tpu.models.stein import _plan_bands
 
@@ -185,7 +199,7 @@ def test_banded_windowed_os_on_chip():
     assert plan["bands"] > 1                    # really banded
     assert -(-lags // (2 * n)) > 1              # really multi-window
     # Emitter in the FINAL, partial lag window (lags not a multiple of
-    # the 2n window): the in-kernel bound must cut past-num_lags
+    # the 2n window): the per-program bound must cut past-num_lags
     # columns without dropping the bin.
     f_true, lag_true = float(freqs[457]), 11_990
     t = np.arange(n)
@@ -198,9 +212,8 @@ def test_banded_windowed_os_on_chip():
 
 def test_stein_os_routes_fused_on_chip():
     """``stein_overlap_save_peak`` (the ``run --full-haystack`` engine)
-    routes its coarse pass through the windowed fused kernel on TPU:
-    exact answer on a capture whose emitter sits past the first lag
-    window, matching the injected truth and the XLA-scan fallback."""
+    routes its coarse pass through the windowed engine: exact answer
+    on a capture whose emitter sits past the first lag window."""
     from caf_cookoff_tpu.models.stein import stein_overlap_save_peak
 
     rng = np.random.default_rng(33)
@@ -220,11 +233,8 @@ def test_stein_os_routes_fused_on_chip():
 
 
 def test_sharded_batched_stein_on_chip(chirp):
-    """The fused batch engine under ``shard_map`` on the REAL chip
-    (1-device ``pair`` mesh).  Regression: the pallas_call out_shape
-    carries no ``vma`` annotation, so shard_map's default vma check
-    rejected this engine at trace time on TPU — never seen by tests/
-    (CPU meshes run the XLA-twin interpret path)."""
+    """The batch engine under ``shard_map`` on the card (1-device
+    ``pair`` mesh)."""
     from caf_cookoff_tpu.parallel.mesh import make_mesh
     from caf_cookoff_tpu.parallel.sharded import sharded_batched_stein_peak
 
@@ -247,13 +257,12 @@ def test_sharded_batched_stein_on_chip(chirp):
 
 
 def test_remaining_sharded_engines_on_chip(chirp, fixture_pairs):
-    """Every other shard_map engine compiled on the REAL chip (1-device
-    meshes) — the vma regression above showed 'works on the CPU mesh'
-    does not imply 'traces on TPU', so the whole sharded family gets a
-    compiled smoke here: doppler-sharded filterbank + Stein (top-k
-    refine collectives), pair-sharded filterbank batch, time-sharded
-    overlap-save, and the three-axis batched OS engine (config 5's
-    pattern)."""
+    """Every other shard_map engine compiled on the card (1-device
+    meshes) — 'works on the CPU mesh' does not imply 'compiles for the
+    GPU', so the whole sharded family gets a compiled smoke here:
+    doppler-sharded filterbank + Stein (top-k refine collectives),
+    pair-sharded filterbank batch, time-sharded overlap-save, and the
+    three-axis batched OS engine (config 5's pattern)."""
     import jax
 
     from caf_cookoff_tpu.parallel.mesh import make_mesh
@@ -304,7 +313,7 @@ def test_remaining_sharded_engines_on_chip(chirp, fixture_pairs):
 
 
 def test_refine_on_chip(chirp, fixture_pairs):
-    """Sub-bin zoom refinement compiled on the real chip: every fixture
+    """Sub-bin zoom refinement compiled on the card: every fixture
     within <=0.01 Hz / <=0.1 sample of the INJECTED truth (the grids
     above can only ever report the snap, e.g. test.rs:162's 36.0 for
     chirp_1's true +35.99)."""
@@ -324,7 +333,7 @@ def test_refine_on_chip(chirp, fixture_pairs):
 
 
 def test_multi_emitter_scan_on_chip():
-    """Top-P lattice scan (overlap_save_peaks) compiled on the chip:
+    """Top-P lattice scan (overlap_save_peaks) compiled on the card:
     three injected emitters fully recovered, strongest first."""
     from caf_cookoff_tpu.models.overlap_save import overlap_save_peaks
 
@@ -348,9 +357,8 @@ def test_multi_emitter_scan_on_chip():
 
 
 def test_stein_streaming_lattice_on_chip():
-    """Multi-emitter lattice through the FUSED stein stream compiled on
-    the real chip (per-bin kernel rank + carried windows + exact
-    re-score)."""
+    """Multi-emitter lattice through the stein stream compiled on the
+    card (per-bin coarse rank + carried windows + exact re-score)."""
     from caf_cookoff_tpu.models.streaming import StreamingCAF
 
     rng = np.random.default_rng(5)
@@ -376,7 +384,7 @@ def test_stein_streaming_lattice_on_chip():
 
 def test_rate_overlap_save_on_chip():
     """Round-4: joint (rate, doppler, lag) search over a long capture
-    compiled on the real chip — a 400 Hz/s sweep at lag 50k in a
+    compiled on the card — a 400 Hz/s sweep at lag 50k in a
     65536-lag capture, coarse dechirp-bank x overlap-save then refined
     to <=0.1 Hz/s."""
     from scipy.signal import filtfilt, firwin
@@ -414,7 +422,7 @@ def test_rate_overlap_save_on_chip():
 
 def test_rate_lattice_on_chip():
     """Round-4+: multi-emitter through the joint (rate, doppler, lag)
-    search compiled on the chip — two accelerating emitters at distinct
+    search compiled on the card — two accelerating emitters at distinct
     (rate, lag) both reach the lattice, with per-slot SNR."""
     from caf_cookoff_tpu.models.rate import rate_overlap_save_peaks
 
@@ -445,7 +453,7 @@ def test_rate_lattice_on_chip():
 
 
 def test_detection_threshold_on_chip():
-    """Round-4 detection decisions compiled on the chip: noise-only
+    """Round-4 detection decisions compiled on the card: noise-only
     capture -> zero detections; two emitters in eight slots -> two."""
     from caf_cookoff_tpu.models.overlap_save import overlap_save_peaks
 
@@ -476,8 +484,8 @@ def test_detection_threshold_on_chip():
 
 
 def test_fused_multi_emitter_lattices_on_chip():
-    """Round-5 multi-emitter fused engines compiled on the chip: the
-    OS lattice (want_top2 kernel epilogue at windows>1) and the
+    """Round-5 multi-emitter segmented engines compiled on the card: the
+    OS lattice (want_top2 epilogue at windows>1) and the
     equal-length lattice recover injected emitter sets exactly."""
     from caf_cookoff_tpu.models.batched_stein import (
         batched_stein_os_peaks,
@@ -533,7 +541,7 @@ def test_fused_multi_emitter_lattices_on_chip():
 
 
 def test_segmented_rate_engines_on_chip():
-    """Round-5 segmented rate search on the chip: argmax and lattice
+    """Round-5 segmented rate search on the card: argmax and lattice
     match the exact serial engine's answers (rank-then-score)."""
     from caf_cookoff_tpu.models.rate import (
         rate_overlap_save_peak,

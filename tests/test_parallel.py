@@ -1,9 +1,9 @@
-"""Multi-chip sharding tests on the 8-virtual-device CPU mesh.
+"""Multi-device sharding tests on the 8-virtual-device CPU mesh.
 
 The distributed test coverage the reference has no analog for (nothing in
 it is distributed, SURVEY §4): every sharded engine must produce the
-single-chip answer bit-for-bit in (freq, lag) across mesh shapes — the
-TPU version of the reference's cross-strategy consistency tests
+single-device answer bit-for-bit in (freq, lag) across mesh shapes — the
+mesh version of the reference's cross-strategy consistency tests
 (``caf_rust/tests/test.rs:15-145``).
 """
 
